@@ -279,7 +279,9 @@ def main() -> None:
     conv_case("ragged-rq", 3, 9, 17, 12, 33, 5, 1, 2, timed=False)
 
     # -- 3c. K3 on every fused segment ---------------------------------------
-    def fused_checks(tag, g, hw, B, record):
+    def fused_checks(tag, g, hw, B):
+        """K3 on every fused segment of `g`'s plan, each against its plain
+        version on the same inputs, timed; returns the per-program sums."""
         params = init_params(g, seed=SEED)
         dep = repro_torch.compile(g, hw, backend="cuda", params=params,
                                   device="cuda")
@@ -304,37 +306,39 @@ def main() -> None:
                         f"{prog.buffers[i][0]}", kv[i], vals[i])
                     kernels["megakernel"]["max_abs_err"] = max(
                         kernels["megakernel"]["max_abs_err"], err)
-                if record:
-                    sv = list(vals)
-                    ms = time_ms(torch, lambda: MK.run_fused(
-                        prog, seg, list(sv), consts, tab))
-                    pms = time_ms(torch, lambda: MK.run_fused_plain(
-                        prog, seg, list(sv), consts))
-                    ins, wids, outs = MK.segment_io(prog, seg)
-                    nbytes = B * sum(MK._buffer_bytes(prog, i)
-                                     for i in ins + outs) + sum(
-                        MK._buffer_bytes(prog, i) for i in wids)
-                    macs = 0
-                    for st in seg.steps:
-                        a = st.batch.attrs
-                        if st.mode == "gemm":
-                            macs += B * a["M"] * a["K"] * a["N"]
-                        elif st.mode == "conv2d":
-                            oh, ow = C.conv_out_hw(a)
-                            macs += (B * oh * ow * a["C_out"] * a["kh"]
-                                     * a["kw"] * a["C_in"])
-                    b = total["bound"].add(nbytes, 2 * macs)
-                    say(f"[K3] {tag} segment {si} ({len(seg.steps)} steps: "
-                        f"{', '.join(s.batch.name for s in seg.steps)}): "
-                        f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                        f"bound {b:.5f} ms")
-                    report["checks"].append({
-                        "kernel": "megakernel", "tag": f"{tag}/{si}",
-                        "steps": [s.batch.name for s in seg.steps],
-                        "ms": ms, "plain_ms": pms, "library_ms": None,
-                        "bound_ms": b})
-                    total["ms"] += ms
-                    total["plain_ms"] += pms
+                sv = list(vals)
+                ms = time_ms(torch, lambda: MK.run_fused(
+                    prog, seg, list(sv), consts, tab))
+                pms = time_ms(torch, lambda: MK.run_fused_plain(
+                    prog, seg, list(sv), consts))
+                ins, wids, outs = MK.segment_io(prog, seg)
+                nbytes = B * sum(MK._buffer_bytes(prog, i)
+                                 for i in ins + outs) + sum(
+                    MK._buffer_bytes(prog, i) for i in wids)
+                macs = 0
+                for st in seg.steps:
+                    a = st.batch.attrs
+                    if st.mode == "gemm":
+                        macs += B * a["M"] * a["K"] * a["N"]
+                    elif st.mode == "conv2d":
+                        oh, ow = C.conv_out_hw(a)
+                        macs += (B * oh * ow * a["C_out"] * a["kh"]
+                                 * a["kw"] * a["C_in"])
+                b = total["bound"].add(nbytes, 2 * macs)
+                names = [s.batch.name for s in seg.steps]
+                shown = ", ".join(names[:4]) + (", ..." if len(names) > 4
+                                                else "")
+                say(f"[K3] {tag} segment {si} ({len(names)} steps: "
+                    f"{shown}): "
+                    f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                    f"bound {b:.5f} ms")
+                report["checks"].append({
+                    "kernel": "megakernel", "tag": f"{tag}/{si}",
+                    "steps": names,
+                    "ms": ms, "plain_ms": pms, "library_ms": None,
+                    "bound_ms": b})
+                total["ms"] += ms
+                total["plain_ms"] += pms
                 total["n"] += 1
             elif seg.kind == "tiled":
                 C.run_kernel_step(prog, seg.steps[0], vals, consts)
@@ -354,7 +358,7 @@ def main() -> None:
                        num_classes=16)),
                    ("yolov5s-test", cnn.yolov5s_backbone(h=64, w=64,
                                                          width=0.25))]:
-        fused_checks(tag, g, hw4, 4, record=False)
+        fused_checks(tag, g, hw4, 4)
 
     # -- 4. main path: ResNet50-224 on scaled_paper_machine(64) --------------
     hw = scaled_paper_machine(64)
@@ -376,7 +380,7 @@ def main() -> None:
         f"(cap {dep.program.num_cores})")
 
     # the three full-width fused segments, against their plain versions
-    k3 = fused_checks("resnet50-224", g, hw, 1, record=True)
+    k3 = fused_checks("resnet50-224", g, hw, 1)
     kernels["megakernel"].update(ms=k3["ms"], plain_ms=k3["plain_ms"],
                                  bound_ms=k3["bound"].ms,
                                  bound_by=k3["bound"].by, library_ms=None)
@@ -478,10 +482,10 @@ def main() -> None:
             cells.append((label, B, fn, xin, d.runner(batched=True),
                           counts))
 
-    # latency: the cells in turns, three rounds, so clock and neighbour
+    # latency: the cells in turns, five rounds, so clock and neighbour
     # drift lands on every cell alike; each round is a median of RUNS
     rounds = {(c[0], c[1]): ([], []) for c in cells}
-    for _ in range(3):
+    for _ in range(5):
         for label, B, fn, xin, run, _c in cells:
             dev_ms, io_ms = rounds[(label, B)]
             dev_ms.append(host_ms(torch, lambda: fn(xin)))
@@ -499,18 +503,20 @@ def main() -> None:
                                 "launches": counts})
 
     # the profiler sees the same launches as the counters, and says where
-    # the device time of one batch-1 megakernel program goes
+    # the device time of one batch-1 megakernel program goes (a first
+    # profiled run absorbs the profiler's start-up and is discarded)
     from torch.profiler import ProfilerActivity, profile
     fn = MK.megakernel_batched(prog, dev)
     xin = C.to_device(prog, {"input": inputs[1]}, dev)
-    fn(xin)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(2):
         fn(xin)
         torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(xin)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     seen = {k: 0 for k in _lib.KERNELS}
     device_events = 0
     busy_us = 0.0
@@ -520,18 +526,22 @@ def main() -> None:
             device_events += 1
             us = ev.time_range.elapsed_us()
             busy_us += us
-            short = ev.name.split("(")[0][-60:]
+            short = ev.name.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0][-60:]
             by_name[short] = by_name.get(short, 0.0) + us
             for k in _lib.KERNELS:
                 if f"{k}_kernel" in ev.name:
                     seen[k] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    lat_us = statistics.median(rounds[("megakernel", 1)][0]) * 1e3
     say(f"[path] profiled megakernel batch 1: {device_events} device "
-        f"events, busy {busy_us:.0f} us of {wall_us:.0f} us wall "
-        f"(idle share {1 - busy_us / wall_us:.3f}); top: "
+        f"events, busy {busy_us:.0f} us; profiled wall {wall_us:.0f} us "
+        f"(idle share {1 - busy_us / wall_us:.3f}), unprofiled median "
+        f"{lat_us:.0f} us (idle share {1 - busy_us / lat_us:.3f}); top: "
         + "; ".join(f"{k} {v:.0f} us" for k, v in top))
     report["profile"] = {"device_events": device_events, "busy_us": busy_us,
-                         "wall_us": wall_us, "top_us": top}
+                         "profiled_wall_us": wall_us,
+                         "unprofiled_us": lat_us, "top_us": top}
     if device_events == 0:
         say("[path] profiler recorded no device events; launches rest on "
             "the wrapper counters")
