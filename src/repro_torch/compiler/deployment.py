@@ -95,30 +95,32 @@ class Deployment:
         return self.report.wcet_total_s
 
     # -- execution -----------------------------------------------------------
-    def runner(self, *, batched: bool = False, backend: str | None = None):
+    def runner(self, *, batched: bool = False, backend: str | None = None,
+               device: str | None = None):
         """The raw runner callable ({name: array} -> {name: array}) for hot
-        loops, on the deployment's device; built once per (backend,
-        batched, options, device) and cached."""
+        loops; built once per (backend, batched, options, device) and
+        cached. `backend` and `device` default to the deployment's."""
         name = backend or self.backend
-        key = (name, bool(batched), self.options.cache_key(), self.device)
+        dev = str(device or self.device)
+        key = (name, bool(batched), self.options.cache_key(), dev)
         if key not in self._runners:
             be = get_backend(name)
-            be.validate_options(self.options, self.device)
+            be.validate_options(self.options, dev)
             be.validate_machine(self.machine)
             make = be.batched if batched else be.single
-            self._runners[key] = make(self.program, self.options,
-                                      self.device)
+            self._runners[key] = make(self.program, self.options, dev)
         return self._runners[key]
 
     def run(self, inputs, *, batched: bool = False,
-            backend: str | None = None) -> dict:
+            backend: str | None = None, device: str | None = None) -> dict:
         """Execute the deployment. `inputs` is {input_name: array} or a
         bare array for single-input graphs; returns {output_name: array}.
-        `backend` overrides the deployment's default for this call."""
+        `backend` and `device` override the deployment's for this call."""
         if not isinstance(inputs, dict):
             (name,) = self.graph.inputs
             inputs = {name: inputs}
-        return self.runner(batched=batched, backend=backend)(inputs)
+        return self.runner(batched=batched, backend=backend,
+                           device=device)(inputs)
 
     def with_backend(self, name: str,
                      options: BackendOptions | None = None) -> "Deployment":

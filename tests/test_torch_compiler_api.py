@@ -197,6 +197,10 @@ def test_default_device_is_the_gpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         repro_torch.Server(HW_T, backend="cuda")
     dep = repro_torch.compile(g, HW_T, backend="cuda", device="cpu")
+    x = np.zeros((32, 32, 3), np.int8)
     with pytest.raises(BackendError, match="requires a CUDA device"):
-        dataclasses.replace(dep, device="cuda").run(
-            np.zeros((32, 32, 3), np.int8))
+        dep.run(x, device="cuda")
+    with pytest.raises(BackendError, match="requires a CUDA device"):
+        dataclasses.replace(dep, device="cuda").runner()
+    assert np.array_equal(dep.run(x, device="cpu")["fc.out"],
+                          dep.run(x)["fc.out"])
