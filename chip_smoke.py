@@ -10,15 +10,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      parallel, for sm_90a);
   3. kernels: K1 (int8 GEMM), K2 (implicit-im2col int8 conv) and K3 (the
      fused-segment megakernel) against their plain torch versions on the
-     card, bit for bit (torch.equal), with times (median of 20 runs after
-     warm-up, CUDA events) beside the plain version's and, where one
-     PyTorch call computes the same function, that call's;
+     card, bit for bit (torch.equal), with device times beside the plain
+     version's and, where one PyTorch call computes the same function,
+     that call's (every time of a kernel, plain version or library call is
+     `graph_ms`: calls replayed from a CUDA graph);
   4. main path: int8 ResNet50-224 compiled for scaled_paper_machine(64) and
      run through `Deployment.run` on the megakernel path, the per-op kernel
      path and the plain "torch" backend at batch 1 and 8, each output bit
      for bit against the numpy `reference_forward`, with latency and
      launches per program (wrapper counters, confirmed by torch.profiler);
-  5. serving: a `Server` on the "cuda" backend answers 8 requests.
+  5. serving: a `Server` on the "cuda" backend answers 8 requests;
+  6. LM: K4 (flash attention) and K5 (the gated scan) against their plain
+     torch versions on the card (f32 on the CPU tests' shapes, bf16 and f32
+     at the path's shapes), with times beside the plain version's, the
+     library call's and the bound; zamba2-1.2B at full width as a float32
+     copy: prefill of 32 tokens + 4 decode steps, card against CPU, then
+     served through `Server.register_decode` (4 slots, 8 tickets, 4 of
+     them arriving mid-stream), every stream equal token for token to the
+     batch-to-completion oracle `ServeEngine.serve`; then the main path,
+     zamba2-1.2B in bf16 through the same Server path, with prefill and
+     decode-step times, launches per prefill (K4) and per decode step
+     (K5), and the profiler's view of one decode step (its streams against
+     the oracle are printed beside the bf16 noise, not held to it).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -28,6 +41,7 @@ chiprun_out/chip_smoke.json. Weights and inputs are random, from seeds.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,11 +51,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM published dense peaks (NVIDIA data sheet): int8 tensor cores and
-# HBM3 bandwidth. The bound of a kernel is the larger of its bytes over the
-# memory rate and its int8 MACs (2 ops each) over the int8 rate.
+# H100 SXM published dense peaks (NVIDIA data sheet): int8 and bf16 tensor
+# cores, float32 outside the tensor cores, and HBM3 bandwidth. The bound of
+# a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type.
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+# the kernels each main path must launch (counts read around that path)
+CNN_KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
+LM_KERNELS = ("flash_attention", "ssm_scan")
 
 RUNS, WARM = 20, 3
 SEED = 0
@@ -62,8 +83,9 @@ class Bound:
     def __init__(self):
         self.bytes_ms = self.ops_ms = self.ms = 0.0
 
-    def add(self, nbytes: float, ops: float) -> float:
-        b, o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+    def add(self, nbytes: float, ops: float,
+            peak_ops: float = PEAK_INT8_OPS) -> float:
+        b, o = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
         self.bytes_ms += b
         self.ops_ms += o
         self.ms += max(b, o)
@@ -74,13 +96,14 @@ class Bound:
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
 
-def time_ms(torch, fn) -> float:
-    """Median device time of `fn` over RUNS launches after WARM warm-ups."""
+def events_ms(torch, fn, runs: int = RUNS) -> float:
+    """Median time between CUDA events around `fn` over `runs` calls after
+    WARM warm-ups."""
     for _ in range(WARM):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -89,6 +112,32 @@ def time_ms(torch, fn) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fns) -> float:
+    """Device time of one call, the one yardstick for every kernel, plain
+    version and library call here: n calls captured in a CUDA graph
+    (cycling over `fns`, one callable or a list of the same call on
+    different inputs), the graph replayed (median of RUNS replays, CUDA
+    events) and divided by n. n (1 to 20) is what fills about 1 ms, so
+    the replay's own launch gap is spread thin. Replay leaves out the
+    Python wrappers' host time, which exceeds a few-microsecond kernel's
+    own."""
+    fns = fns if isinstance(fns, list) else [fns]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:           # first calls (library loads, caches) eager
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    one = events_ms(torch, fns[0], runs=3)
+    n = max(len(fns), min(20, math.ceil(1.0 / max(one, 1e-3))))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fns[i % len(fns)]()
+    return events_ms(torch, g.replay) / n
 
 
 def host_ms(torch, fn) -> float:
@@ -142,6 +191,430 @@ def mixed_graph():
     g.mark_output(linear(g, "fc", global_avg_pool(g, "gap", c), 10))
     g.validate()
     return g
+
+def profile_once(torch, fn):
+    """Profile one call of `fn` after a warm-up (a first profiled call
+    absorbs the profiler's start-up and is discarded). Returns (device
+    events by kernel short name, busy us, profiled wall us, events)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name, names = 0.0, {}, []
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CUDA"):
+            us = ev.time_range.elapsed_us()
+            busy_us += us
+            names.append(ev.name)
+            short = ev.name.replace("(anonymous namespace)::", "")
+            short = short.split("(")[0].split("<")[0][-60:]
+            by_name[short] = by_name.get(short, 0.0) + us
+    return by_name, busy_us, wall_us, names
+
+
+# the K4 parameter sets of tests/test_torch_lm_kernels.py (B, Hq, Hkv, Sq,
+# Skv, D), causal, window
+K4_TEST_CASES = [((1, 4, 4, 64, 64, 32), True, None),
+                 ((2, 8, 2, 100, 100, 64), True, None),
+                 ((2, 8, 2, 100, 100, 64), True, 37),
+                 ((1, 4, 1, 33, 77, 16), True, None),
+                 ((2, 4, 4, 64, 64, 32), False, None),
+                 ((2, 8, 2, 1, 100, 64), True, None)]
+
+
+def lm_phase(torch, np, rng, kernels, report, smi) -> dict:
+    """Phase 6. Returns the kernel launch counts of the LM serving run."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.hw import scaled_paper_machine
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    params_to, prefill_step)
+    from repro_torch.serve import Server
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    # float32 GEMMs in full float32, and bf16 GEMMs reduced in float32 (as
+    # the TPU's MXU accumulates): cuBLAS may otherwise reduce split-K
+    # partials in bf16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(dev).manual_seed(SEED)
+    lm: dict = {"checks": []}
+    report["lm"] = lm
+    k4, k5 = kernels["flash_attention"], kernels["ssm_scan"]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def close(name, got, want, atol, rtol) -> float:
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{name}: kernel gave {got.dtype} {tuple(got.shape)}, "
+                 f"plain {want.dtype} {tuple(want.shape)}")
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.allclose(got.float(), want.float(), atol=atol,
+                              rtol=rtol):
+            fail(f"{name}: kernel disagrees with its plain version (max abs "
+                 f"err {err}, atol {atol}, rtol {rtol})")
+        return err
+
+    # -- 6a. K4 against its plain version ------------------------------------
+    n = 0
+    for (B, Hq, Hkv, Sq, Skv, D), causal, window in K4_TEST_CASES:
+        q, k, v = randn(B, Hq, Sq, D), randn(B, Hkv, Skv, D), \
+            randn(B, Hkv, Skv, D)
+        for scale in (None, 0.25):
+            err = close(f"K4 f32 {(B, Hq, Hkv, Sq, Skv, D)} causal={causal} "
+                        f"window={window} scale={scale}",
+                        flash_attention(q, k, v, causal=causal,
+                                        window=window, scale=scale),
+                        flash_attention_plain(q, k, v, causal, window,
+                                              scale), 3e-5, 1e-4)
+            k4["max_abs_err"] = max(k4["max_abs_err"], err)
+            n += 1
+    say(f"[K4] f32: {n} checks on the CPU tests' shapes within atol 3e-5, "
+        f"rtol 1e-4 (max abs err {k4['max_abs_err']:.3g})")
+    for B in (1, 4):
+        # the path's shape: zamba2's shared attention over a 128-token
+        # prompt, at batch 1 (LMBackend prefill) and 4 (ServeEngine)
+        Hq, S, D = 32, 128, 64
+        q, k, v = (randn(B, Hq, S, D, dtype=torch.bfloat16)
+                   for _ in range(3))
+        err = close(f"K4 bf16 {(B, Hq, S, D)}",
+                    flash_attention(q, k, v, causal=True),
+                    flash_attention_plain(q, k, v, True), 2e-2, 0.0)
+        k4["max_abs_err"] = max(k4["max_abs_err"], err)
+        ms = graph_ms(torch, lambda: flash_attention(q, k, v, causal=True))
+        pms = graph_ms(torch, lambda: flash_attention_plain(q, k, v, True))
+        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        bd = Bound()
+        b = bd.add(4 * q.numel() * 2,
+                   2 * 2 * B * Hq * D * (S * (S + 1) // 2), PEAK_BF16_FLOPS)
+        say(f"[K4] bf16 {(B, Hq, S, D)} causal: max abs err {err:.3g} "
+            f"(atol 2e-2); device time (CUDA graph) kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, library (scaled_dot_product_attention) "
+            f"{lib_ms:.4f} ms, bound {b:.5f} ms ({bd.by})")
+        lm["checks"].append({"kernel": "flash_attention",
+                             "shape": [B, Hq, S, D], "dtype": "bf16",
+                             "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                             "library_ms": lib_ms, "bound_ms": b})
+        if B == 1:
+            k4.update(ms=ms, plain_ms=pms, library_ms=lib_ms, bound_ms=b,
+                      bound_by=bd.by)
+
+    # -- 6b. K5 against its plain version ------------------------------------
+    for B, T, with_h0 in ((4, 1, True), (1, 8, False)):
+        D = 2 * 2048 * 64                  # zamba2's (channel, state) pairs
+        # four input sets (67 MB at B = 4) cycled through the timed graph,
+        # more than the 50 MB L2 holds: each launch reads from HBM as the
+        # decode step's cached state does
+        sets = []
+        for _ in range(4):
+            a = torch.rand((B, T, D), generator=gen, device=dev) * 0.9 + 0.05
+            sets.append((a, randn(B, T, D),
+                         randn(B, D) if with_h0 else None))
+        a, x, h0 = sets[0]
+        err = close(f"K5 {(B, T, D)} h0={with_h0}", ssm_scan(a, x, h0),
+                    ssm_scan_plain(a, x, h0), 1e-6, 1e-5)
+        k5["max_abs_err"] = max(k5["max_abs_err"], err)
+        ms = graph_ms(torch, [lambda s_=s_: ssm_scan(*s_) for s_ in sets])
+        pms = graph_ms(torch, [lambda s_=s_: ssm_scan_plain(*s_)
+                               for s_ in sets])
+        lib_ms = None
+        if T == 1 and with_h0:
+            close("torch.addcmul as K5 at T = 1",
+                  torch.addcmul(x, a, h0[:, None]),
+                  ssm_scan_plain(a, x, h0), 1e-6, 1e-5)
+            lib_ms = graph_ms(torch, [
+                lambda s_=s_: torch.addcmul(s_[1], s_[0], s_[2][:, None])
+                for s_ in sets])
+        bd = Bound()
+        b = bd.add(3 * B * T * D * 4 + (B * D * 4 if with_h0 else 0),
+                   2 * B * T * D, PEAK_F32_FLOPS)
+        say(f"[K5] f32 {(B, T, D)} h0={with_h0}: max abs err {err:.3g} "
+            f"(rtol 1e-5); device time (CUDA graph) kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, library (addcmul) "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound "
+            f"{b:.5f} ms ({bd.by})")
+        lm["checks"].append({"kernel": "ssm_scan", "shape": [B, T, D],
+                             "h0": with_h0, "max_abs_err": err, "ms": ms,
+                             "plain_ms": pms, "library_ms": lib_ms,
+                             "bound_ms": b})
+        if T == 1:
+            k5.update(ms=ms, plain_ms=pms, library_ms=lib_ms, bound_ms=b,
+                      bound_by=bd.by)
+
+    # -- 6c. zamba2-1.2B at full width, float32 copy -------------------------
+    cfg = get_config("zamba2-1.2b")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # K4 once per shared-attention application (6), K5 once per Mamba2
+    # layer in a decode step (38)
+    n_k4, n_k5 = cfg.num_layers // cfg.attn_every, cfg.num_layers
+    # the 8 prompts (16-128 tokens) that both Server runs below answer
+    lens = rng.integers(16, 129, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+
+    def serve_tickets(cfg_, params_, new_tokens):
+        """`Server.register_decode` with 4 slots: 4 tickets before the
+        first step and 4 mid-stream, each done with `new_tokens` tokens.
+        The launch counts are read around the serving loop alone."""
+        srv = Server(scaled_paper_machine(64), backend="cuda")
+        t0 = time.perf_counter()
+        verdict = srv.register_decode(
+            "zamba2", cfg_, period_s=0.1, params=params_, slots=4,
+            prompt_len=128, max_new_tokens=new_tokens, max_len=256)
+        say(f"[lm] admitted zamba2-1.2b ({cfg_.dtype}) in "
+            f"{time.perf_counter() - t0:.2f} s: modeled bound of one decode "
+            f"step on the modeled RISC-V machine "
+            f"{verdict.response_bound_s * 1e3:.3f} ms, period 100 ms")
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [srv.submit("zamba2", prompts[i]) for i in range(4)]
+        jobs = 0
+        while not all(t.terminal for t in tickets) or len(tickets) < 8:
+            srv.step()
+            jobs += 1
+            if jobs == 3:                        # 4 arrive mid-stream
+                tickets += [srv.submit("zamba2", prompts[i])
+                            for i in range(4, 8)]
+            if jobs > 1000:
+                fail("the LM server did not finish 8 tickets in 1000 jobs")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = _lib.launch_counts()
+        tele = srv.telemetry()["continuous"]["zamba2"]
+        for t in tickets:
+            if t.status != "done":
+                fail(f"LM ticket {t.tid} ended {t.status}: {t.error}")
+            if len(t.result().output) != new_tokens:
+                fail(f"LM ticket {t.tid}: {len(t.result().output)} tokens")
+        if counts["flash_attention"] != n_k4 * tele["prefills"] or \
+                counts["ssm_scan"] != n_k5 * tele["decode_steps"]:
+            fail(f"LM serving launched {counts} for {tele['prefills']} "
+                 f"prefills and {tele['decode_steps']} decode steps "
+                 f"(expected {n_k4} K4 per prefill, {n_k5} K5 per decode "
+                 f"step)")
+        return srv, verdict, tickets, jobs, wall_s, counts, tele
+
+    def oracle(cfg_, params_, new_tokens):
+        """The streams of `ServeEngine.serve(batch_size=4)` on the card."""
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=new_tokens)
+                for i, p in enumerate(prompts)]
+        ServeEngine(cfg_, params_, batch_size=4, max_len=256).serve(
+            reqs, prompt_len=128)
+        return [r.out for r in reqs]
+
+    t0 = time.perf_counter()
+    p_dev = init_params(cfg32, torch.Generator(dev).manual_seed(SEED))
+    p_cpu = params_to(p_dev, "cpu")
+    n_params = sum(t.numel() for t in _leaves(p_dev))
+    say(f"[lm] zamba2-1.2b float32 copy: {n_params / 1e9:.3f} B params on "
+        f"the card and the CPU in {time.perf_counter() - t0:.1f} s")
+    toks = rng.integers(1, cfg.vocab_size, (1, 32))
+    sides = {}
+    for side, p_, d_ in (("card", p_dev, dev), ("cpu", p_cpu, "cpu")):
+        _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(cfg32)(
+            p_, {"tokens": torch.as_tensor(toks, device=d_)},
+            init_cache(cfg32, 1, 64, device=d_))
+        outs = [logits.cpu()]
+        sides[side] = {"prefill_counts": _lib.launch_counts()}
+        for _ in range(4):
+            tok = torch.argmax(outs[-1][:, -1], dim=-1)[:, None]
+            if side == "cpu":                   # teacher-forced by the card
+                tok = torch.argmax(sides["card"]["logits"][len(outs) - 1]
+                                   [:, -1], dim=-1)[:, None]
+            logits, cache = decode_step(cfg32)(p_, cache, tok.to(d_))
+            outs.append(logits.cpu())
+        sides[side].update(logits=outs, s=time.perf_counter() - t0)
+    for i, (ld, lc) in enumerate(zip(sides["card"]["logits"],
+                                     sides["cpu"]["logits"])):
+        atol = 1e-3 * lc.abs().max().item()
+        err = (ld - lc).abs().max().item()
+        what = "prefill" if i == 0 else f"decode step {i}"
+        if not torch.allclose(ld, lc, rtol=1e-3, atol=atol):
+            fail(f"zamba2 float32 {what}: card logits differ from the CPU's "
+                 f"(max abs err {err}, atol {atol})")
+        if not torch.equal(ld[:, -1].argmax(-1), lc[:, -1].argmax(-1)):
+            fail(f"zamba2 float32 {what}: greedy tokens differ")
+        lm["checks"].append({"model": "zamba2-1.2b f32", "step": what,
+                             "max_abs_err": err, "atol": atol})
+    pc = sides["card"]["prefill_counts"]
+    if pc["flash_attention"] != n_k4:
+        fail(f"zamba2 float32 prefill launched K4 {pc['flash_attention']} "
+             f"times, expected {n_k4}")
+    say(f"[lm] zamba2-1.2b float32: prefill (32 tokens) + 4 decode steps, "
+        f"card logits within rtol 1e-3 / atol 1e-3 max|logits| of the CPU's "
+        f"and greedy tokens equal (card {sides['card']['s']:.2f} s, CPU "
+        f"{sides['cpu']['s']:.2f} s)")
+    del p_cpu, sides
+
+    # the continuous-batching path exactly: per-row pos, the clamped
+    # per-row cache writes and K5 resuming each slot's state, on the
+    # float32 copy, where only the float32 rounding of another GEMM shape
+    # separates the two schedules
+    _, _, tickets, _, wall_s, _, _ = serve_tickets(cfg32, p_dev, 8)
+    want = oracle(cfg32, p_dev, 8)
+    for t, w in zip(tickets, want):
+        if t.result().output != w:
+            fail(f"zamba2 float32 Server ticket {t.tid} gave "
+                 f"{t.result().output}, ServeEngine.serve {w}")
+    say(f"[lm] zamba2-1.2b float32 through Server.register_decode: 8 of 8 "
+        f"streams (8 tokens each, 4 tickets mid-stream) equal "
+        f"ServeEngine.serve(batch_size=4) token for token ({wall_s:.2f} s)")
+    lm["f32_server"] = {"streams_equal_oracle": 8, "wall_s": wall_s}
+    del p_dev
+    torch.cuda.empty_cache()
+
+    # -- 6d. the main path: zamba2-1.2B in bf16 through the Server -----------
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED))
+    srv, verdict, tickets, jobs, wall_s, lm_counts, tele = serve_tickets(
+        cfg, params, 32)
+    for k in LM_KERNELS:
+        if lm_counts[k] == 0:
+            fail(f"kernel {k} was not launched on the LM serving path")
+    n_tok = sum(len(t.result().output) for t in tickets)
+    say(f"[lm] Server: 8 tickets done, 32 tokens each, in {jobs} jobs "
+        f"({tele['prefills']} prefills, {tele['decode_steps']} decode "
+        f"steps, {wall_s:.2f} s, {n_tok / wall_s:.1f} tokens/s end to end); "
+        f"launches {lm_counts}")
+
+    # A diagnostic, not a gate: how far bf16 rounding carries the streams
+    # from the oracle's. LMBackend prefills each prompt alone (GEMMs with
+    # M = 128), the oracle four at once (M = 512); with random weights the
+    # 38 layers amplify bf16 rounding far beyond one ulp of the logits, so
+    # greedy streams flip wherever the top-2 margin is inside this noise.
+    diffs = []
+    for g0 in (0, 4):
+        padded = torch.tensor([[0] * (128 - len(p)) + p
+                               for p in prompts[g0:g0 + 4]], device=dev)
+        l4, _ = prefill_step(cfg)(params, {"tokens": padded},
+                                  init_cache(cfg, 4, 256, device=dev))
+        for i in range(4):
+            l1, _ = prefill_step(cfg)(params, {"tokens": padded[i:i + 1]},
+                                      init_cache(cfg, 1, 256, device=dev))
+            diffs.append((l1[0, -1] - l4[i, -1]).abs())
+    diffs = torch.cat(diffs).float()
+    noise = {q_: torch.quantile(diffs, q_).item() for q_ in (0.5, 0.99)}
+    noise["max"] = diffs.max().item()
+    say(f"[lm] bf16 prefill logits, batch 1 vs batch 4 on the same 8 "
+        f"prompts: |difference| median {noise[0.5]:.4g}, 99th percentile "
+        f"{noise[0.99]:.4g}, max {noise['max']:.4g} (max |logit| "
+        f"{l4.abs().max().item():.3g})")
+    want = oracle(cfg, params, 32)
+    same, margins = 0, []
+    for t, p, w in zip(tickets, prompts, want):
+        got = t.result().output
+        if got == w:
+            same += 1
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, w)) if a != b)
+        padded = [0] * (128 - len(p)) + p + w[:i]
+        logits, _ = prefill_step(cfg)(
+            params, {"tokens": torch.tensor([padded], device=dev)},
+            init_cache(cfg, 1, 256, device=dev))
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        margins.append((top2[0] - top2[1]).item())
+    inside = sum(m < noise[0.99] for m in margins)
+    say(f"[lm] bf16: {same} of 8 streams equal ServeEngine.serve("
+        f"batch_size=4) token for token; the rest first differ at top-2 "
+        f"margins {[round(m_, 4) for m_ in margins]}, {inside} of them below "
+        f"the 99th percentile of the noise (the float32 run holds this "
+        f"path to the oracle exactly)")
+    backend = srv._nets["zamba2"].cengine.backend
+
+    # times and launches per prefill and per decode step
+    def prefill_once():
+        return backend.prefill(prompts[0])
+
+    _lib.reset_launch_counts()
+    prefill_once()
+    per_prefill = _lib.launch_counts()
+    cache = backend.init_cache()
+    for slot in range(4):
+        cache = backend.insert(backend.prefill(prompts[slot])[1], cache,
+                               slot)
+    prev = np.array([5, 6, 7, 8], np.int32)
+    valid = np.ones(4, bool)
+    lengths = np.ones(4, np.int32)
+
+    def decode_once():
+        return backend.generate(cache, prev, valid, lengths)
+
+    _lib.reset_launch_counts()
+    decode_once()
+    per_step = _lib.launch_counts()
+    if per_prefill["flash_attention"] != n_k4 or \
+            per_step["ssm_scan"] != n_k5:
+        fail(f"launches per prefill {per_prefill}, per decode step "
+             f"{per_step}: expected {n_k4} K4 and {n_k5} K5")
+    prefill_ms = host_ms(torch, prefill_once)
+    step_ms = host_ms(torch, decode_once)
+    say(f"[lm] bf16, batch-1 prefill of 128 tokens: {prefill_ms:.3f} ms "
+        f"(K4 x{per_prefill['flash_attention']}); 4-slot decode step: "
+        f"median {step_ms:.3f} ms (K5 x{per_step['ssm_scan']}), "
+        f"{4e3 / step_ms:.1f} tokens/s")
+    profiles = {}
+    for what, fn, kern, want in (("decode step", decode_once, "ssm_scan",
+                                  n_k5),
+                                 ("prefill", prefill_once,
+                                  "flash_attention", n_k4)):
+        by_name, busy_us, wall_us, names = profile_once(torch, fn)
+        seen = sum(f"{kern}_kernel" in nm for nm in names)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        unprof_us = (step_ms if what == "decode step" else prefill_ms) * 1e3
+        say(f"[lm] profiled {what}: {len(names)} device events, busy "
+            f"{busy_us:.0f} us; profiled wall {wall_us:.0f} us, unprofiled "
+            f"median {unprof_us:.0f} us (idle share "
+            f"{1 - busy_us / unprof_us:.3f}); {kern}_kernel x{seen}; top: "
+            + "; ".join(f"{k} {v:.0f} us" for k, v in top))
+        if names and seen != want:
+            fail(f"profiler saw {kern}_kernel {seen} times in one {what}, "
+                 f"expected {want}")
+        if not names:
+            say(f"[lm] profiler recorded no device events for the {what}; "
+                "launches rest on the wrapper counters")
+        else:
+            say(f"[lm] profiler confirms {seen} {kern}_kernel launches per "
+                f"{what}")
+        profiles[what] = {"device_events": len(names), "busy_us": busy_us,
+                          "profiled_wall_us": wall_us,
+                          "unprofiled_us": unprof_us, "kernel_seen": seen,
+                          "top_us": top}
+    lm.update(serve={"jobs": jobs, "wall_s": wall_s, "tokens": n_tok,
+                     "tokens_per_s": n_tok / wall_s, "launches": lm_counts,
+                     "continuous": tele, "streams_equal_oracle": same,
+                     "bound_ms": verdict.response_bound_s * 1e3},
+              prefill_ms=prefill_ms, decode_step_ms=step_ms,
+              decode_tokens_per_s=4e3 / step_ms, per_prefill=per_prefill,
+              per_decode_step=per_step, profile=profiles, card=smi,
+              prefill_noise={str(k_): v_ for k_, v_ in noise.items()},
+              stream_margins=margins)
+    return lm_counts
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def main() -> None:
@@ -212,8 +685,8 @@ def main() -> None:
                            gemm_int8(x, w, m), gemm_int8_plain(x, w, m))
         kernels["gemm_int8"]["max_abs_err"] = max(
             kernels["gemm_int8"]["max_abs_err"], err)
-        ms = time_ms(torch, lambda: gemm_int8(x, w, m))
-        pms = time_ms(torch, lambda: gemm_int8_plain(x, w, m))
+        ms = graph_ms(torch, lambda: gemm_int8(x, w, m))
+        pms = graph_ms(torch, lambda: gemm_int8_plain(x, w, m))
         lib_ms = None
         if mode == "int32":
             # torch._int_mm wants M > 16 and K, N multiples of 8: pad M
@@ -224,7 +697,7 @@ def main() -> None:
             if not torch.equal(torch._int_mm(xp, wp)[:M, :N],
                                gemm_int8_plain(x, w)):
                 fail("torch._int_mm disagrees with the plain GEMM")
-            lib_ms = time_ms(torch, lambda: torch._int_mm(xp, wp))
+            lib_ms = graph_ms(torch, lambda: torch._int_mm(xp, wp))
         b = Bound().add(M * K + K * N
                         + M * N * (4 if mode == "int32" else 1),
                         2 * M * N * K)
@@ -247,15 +720,15 @@ def main() -> None:
             kernels["conv2d_int8"]["max_abs_err"], err)
         if not timed:
             return None
-        ms = time_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
-        pms = time_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
+        ms = graph_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
+        pms = graph_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
         # the library yardstick: cuDNN's float32 convolution (TF32 off) on
         # float copies of the same inputs, NCHW in channels-last memory
         xf = x.permute(0, 3, 1, 2).float().contiguous(
             memory_format=torch.channels_last)
         wf = w.reshape(k, k, Cin, N).permute(3, 2, 0, 1).float().contiguous(
             memory_format=torch.channels_last)
-        lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(
+        lib_ms = graph_ms(torch, lambda: torch.nn.functional.conv2d(
             xf, wf, stride=s, padding=p))
         oh = (H + 2 * p - k) // s + 1
         ow = (W + 2 * p - k) // s + 1
@@ -307,9 +780,9 @@ def main() -> None:
                     kernels["megakernel"]["max_abs_err"] = max(
                         kernels["megakernel"]["max_abs_err"], err)
                 sv = list(vals)
-                ms = time_ms(torch, lambda: MK.run_fused(
+                ms = graph_ms(torch, lambda: MK.run_fused(
                     prog, seg, list(sv), consts, tab))
-                pms = time_ms(torch, lambda: MK.run_fused_plain(
+                pms = graph_ms(torch, lambda: MK.run_fused_plain(
                     prog, seg, list(sv), consts))
                 ins, wids, outs = MK.segment_io(prog, seg)
                 nbytes = B * sum(MK._buffer_bytes(prog, i)
@@ -399,13 +872,13 @@ def main() -> None:
         m = None if st.mult is None else consts.mults[st.out_idx]
         if st.mode == "gemm":
             x = i8(1, a["M"], a["K"])
-            ms = time_ms(torch, lambda: gemm_int8(x, w, m))
-            pms = time_ms(torch, lambda: gemm_int8_plain(x, w, m))
+            ms = graph_ms(torch, lambda: gemm_int8(x, w, m))
+            pms = graph_ms(torch, lambda: gemm_int8_plain(x, w, m))
             xp = torch.zeros(32, a["K"], dtype=torch.int8, device=dev)
             Np = -(-a["N"] // 8) * 8
             wp = torch.zeros(a["K"], Np, dtype=torch.int8, device=dev)
             xp[:a["M"]], wp[:, :a["N"]] = x[0], w
-            lib = time_ms(torch, lambda: torch._int_mm(xp, wp))
+            lib = graph_ms(torch, lambda: torch._int_mm(xp, wp))
             key = "gemm_int8"
             b = bounds[key].add(x.numel() + w.numel() + a["M"] * a["N"]
                                 * (1 if m is not None else 4),
@@ -415,14 +888,14 @@ def main() -> None:
             x = i8(1, a["H"], a["W"], a["C_in"])
             kw = dict(kh=a["kh"], kw=a["kw"], stride=a["stride"],
                       padding=a["padding"])
-            ms = time_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
-            pms = time_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
+            ms = graph_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
+            pms = graph_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
             xf = x.permute(0, 3, 1, 2).float().contiguous(
                 memory_format=torch.channels_last)
             wf = w.reshape(a["kh"], a["kw"], a["C_in"], a["C_out"]).permute(
                 3, 2, 0, 1).float().contiguous(
                 memory_format=torch.channels_last)
-            lib = time_ms(torch, lambda: torch.nn.functional.conv2d(
+            lib = graph_ms(torch, lambda: torch.nn.functional.conv2d(
                 xf, wf, stride=a["stride"], padding=a["padding"]))
             key = "conv2d_int8"
             b = bounds[key].add(x.numel() + w.numel() + oh * ow * a["C_out"]
@@ -581,9 +1054,12 @@ def main() -> None:
     tele = srv.telemetry()
     say(f"[serve] {tele['metrics']['tickets']} tickets, "
         f"{tele['metrics']['jobs']} jobs, launches {serve_counts}")
-    for k in _lib.KERNELS:
+    for k in CNN_KERNELS:
         if serve_counts[k] == 0:
-            fail(f"kernel {k} was not launched on the main path")
+            fail(f"kernel {k} was not launched on the CNN serving path")
+
+    # -- 6. LM: zamba2-1.2B through Server.register_decode ---------------------
+    lm_counts = lm_phase(torch, np, rng, kernels, report, smi)
 
     # -- result lines ---------------------------------------------------------
     where = {
@@ -593,13 +1069,19 @@ def main() -> None:
                         "src/repro/kernels/conv2d_im2col.py:82"),
         "megakernel": ("src/repro_torch/csrc/megakernel.cu",
                        "src/repro/core/megakernel.py:261"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:88"),
+        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan.py:53"),
     }
+    launches = {**{k: serve_counts[k] for k in CNN_KERNELS},
+                **{k: lm_counts[k] for k in LM_KERNELS}}
     line = {"kernels": []}
     for k in _lib.KERNELS:
         kd = kernels[k]
         line["kernels"].append({
             "name": k, "route": "cuda", "source": where[k][0],
-            "replaces": where[k][1], "launches": serve_counts[k],
+            "replaces": where[k][1], "launches": launches[k],
             "max_abs_err": kd["max_abs_err"], "ms": kd["ms"],
             "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
             "bound_by": kd["bound_by"],

@@ -21,8 +21,8 @@ pass mirrors that structure on the compiled program:
   3. **Launch invariant**: the planner re-packs with a doubled budget until
      the program emits at most `num_cores` kernels (`max_kernels` override
      in `BackendOptions`). The kernel wrappers count their launches
-     (`kernels.launch_counts`), so the invariant is checked on real
-     launches (plain-version calls on the CPU).
+     (`kernels.launch_counts`), so on the card the invariant is checked on
+     real launches.
 
 The plan is the modeled machine's: on the H100 a fused segment's footprint
 (1 MiB and up) does not fit a block's shared memory, so K3 tiles each step
@@ -411,9 +411,8 @@ def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
               consts: C.DeviceConsts, tab: SegmentTable | None = None
               ) -> None:
     """One fused segment: one K3 launch on CUDA tensors (`tab` from
-    `build_segment_table`), its plain version on CPU tensors. Counts one
-    launch either way."""
-    _lib.count_launch("megakernel")
+    `build_segment_table`), its plain version on CPU tensors. A kernel
+    launch counts one; the plain version counts none."""
     ins = tab.ins if tab is not None else _segment_io(prog, seg)[0]
     device = vals[ins[0]].device     # a segment always reads from outside
     if device.type == "cpu":
@@ -451,6 +450,7 @@ def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
                                 len(ptrs), ws.data_ptr(), B, bar.data_ptr(),
                                 grid, _lib.stream_ptr(ws))
     _lib.check(lib, err, "megakernel")
+    _lib.count_launch("megakernel")
     for i, o in zip(tab.outs, outs):
         vals[i] = o
 

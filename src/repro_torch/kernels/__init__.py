@@ -2,14 +2,19 @@
 
 Layout per kernel: <name>.py holds the wrapper (checks, launch, launch
 counter) and the plain version, csrc/<name>.cu the kernel, ref.py the
-plain-torch oracles. The sources build on first use (`_lib.build_all`);
-importing this package builds and loads nothing.
+plain-torch oracles, ops.py the device dispatch model code calls. The
+sources build on first use (`_lib.build_all`); importing this package
+builds and loads nothing.
 """
 
-from . import ref
+from . import ops, ref
 from ._lib import launch_counts, reset_launch_counts
 from .conv2d_im2col import conv2d_int8, conv2d_int8_plain
+from .flash_attention import flash_attention, flash_attention_plain
 from .gemm_int8 import gemm_int8, gemm_int8_plain
+from .ssm_scan import ssm_scan, ssm_scan_plain
 
-__all__ = ["ref", "gemm_int8", "gemm_int8_plain", "conv2d_int8",
-           "conv2d_int8_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["ops", "ref", "gemm_int8", "gemm_int8_plain", "conv2d_int8",
+           "conv2d_int8_plain", "flash_attention", "flash_attention_plain",
+           "ssm_scan", "ssm_scan_plain", "launch_counts",
+           "reset_launch_counts"]

@@ -10,9 +10,10 @@ the CUDA error code of its launch, and `check` raises on anything but 0.
 Nothing is built or loaded at import time. A missing `nvcc`, a failed build
 or a failed load raises.
 
-Launch counters: every kernel wrapper adds one to its counter per call, on
-the path it takes (the kernel on a CUDA tensor, the plain version on a CPU
-tensor). `reset_launch_counts` / `launch_counts` read them.
+Launch counters: a kernel wrapper adds one to its counter after its kernel
+launched without error, and nowhere else; a call that takes the plain
+version (a CPU tensor) counts nothing. `reset_launch_counts` /
+`launch_counts` read them.
 """
 
 from __future__ import annotations
@@ -27,14 +28,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gemm_int8", "conv2d_im2col", "megakernel")
+SOURCES = ("gemm_int8", "conv2d_im2col", "megakernel", "flash_attention",
+           "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
-KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
+KERNELS = ("gemm_int8", "conv2d_int8", "megakernel", "flash_attention",
+           "ssm_scan")
 _COUNTS = {k: 0 for k in KERNELS}
 
 
@@ -108,11 +111,15 @@ def build_all(verbose: bool = False) -> Path:
 def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every exported entry point."""
     P, I = ctypes.c_void_p, ctypes.c_int
+    L, F = ctypes.c_longlong, ctypes.c_float
     table = {
         "gemm_int8_launch": [P, P, P, I, P, I, I, I, P],
         "conv2d_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
         "megakernel_launch": [P, I, P, I, P, I, P, I, P],
         "megakernel_max_grid": [ctypes.POINTER(ctypes.c_int)],
+        "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I,
+                                   P],
+        "ssm_scan_launch": [P, P, P, P, I, I, L, P],
     }
     for name, args in table.items():
         fn = getattr(lib, name, None)

@@ -46,7 +46,8 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
     is given.
 
     On a CUDA tensor this launches K2; on a CPU tensor it runs
-    `conv2d_int8_plain`. Every call counts one launch.
+    `conv2d_int8_plain`. A kernel launch counts one; the plain version
+    counts none.
     """
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"conv2d_int8 takes int8 operands, got {x.dtype} "
@@ -57,7 +58,6 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)} do not fit a {kh}x{kw} kernel")
     if x.device != w.device:
         raise ValueError(f"conv2d_int8: x on {x.device}, w on {w.device}")
-    _lib.count_launch("conv2d_int8")
     if x.device.type == "cpu":
         return conv2d_int8_plain(x, w, requant_mult, kh=kh, kw=kw,
                                  stride=stride, padding=padding)
@@ -82,4 +82,5 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
         1 if mult is None else mult.numel(), out.data_ptr(),
         B, H, W, C, N, kh, kw, stride, padding, _lib.stream_ptr(x))
     _lib.check(lib, err, "conv2d_int8")
+    _lib.count_launch("conv2d_int8")
     return out

@@ -1,0 +1,133 @@
+"""K4: blockwise GQA attention with an online softmax (flash attention).
+
+The CUDA kernel is `csrc/flash_attention.cu` (it replaces the JAX
+package's `kernels/flash_attention.py::flash_attention_pallas`);
+`flash_attention_plain` is its plain torch version, which the wrapper
+takes for CPU tensors only. Both keep the Pallas kernel's semantics: the
+causal mask with the decode offset Skv - Sq, the optional sliding window,
+the `scale` override, the -1e30 sentinel and `acc / max(l, 1e-30)`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+from .ref import NEG
+
+# the kernel's kv tile; the plain version walks the kv axis in the same
+# 64-row tiles
+BK = 64
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: expected "
+                         "(B, Hq, Sq, D) and two (B, Hkv, Skv, D)")
+    B, Hq, _, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1] != 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and kv "
+                         f"{tuple(k.shape)} do not match (Hq % Hkv == 0)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes one float dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+
+
+def attention_blockwise(q, k, v, *, causal=True, window=None,
+                        scale: float | None = None, q_chunk=1024,
+                        kv_chunk=1024):
+    """Flash-style attention in plain torch: the online softmax with f32
+    (m, l, acc) state over kv chunks, per q chunk (the JAX package's
+    `models/attention.py::attention_blockwise`, whose `lax.scan`s become
+    loops). Never materializes more than (q_chunk x kv_chunk) logits per
+    (b, kv-head, group)."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    offs = Skv - Sq
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    qg = (q.float() * scale).reshape(B, Hkv, g, Sq, D)
+    kf, vf = k.float(), v.float()
+    dev = q.device
+    outs = []
+    for q0 in range(0, Sq, qc):
+        q1 = min(Sq, q0 + qc)
+        n = q1 - q0
+        m = torch.full((B, Hkv, g, n, 1), NEG, device=dev)
+        l = torch.zeros((B, Hkv, g, n, 1), device=dev)
+        acc = torch.zeros((B, Hkv, g, n, D), device=dev)
+        qpos = torch.arange(q0, q1, device=dev)[:, None] + offs
+        for k0 in range(0, Skv, kc):
+            k1 = min(Skv, k0 + kc)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg[:, :, :, q0:q1],
+                             kf[:, :, k0:k1])
+            kpos = torch.arange(k0, k1, device=dev)[None, :]
+            mask = torch.ones((n, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            s = torch.where(mask, s, torch.full_like(s, NEG))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), torch.zeros_like(s))
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                            vf[:, :, k0:k1])
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    out = torch.cat(outs, dim=3)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch: the online softmax over kv
+    tiles of 64 rows, every q row at once. (The kernel also skips tiles no
+    row of its q tile can see; a fully masked tile leaves (m, l, acc) as
+    they are, so skipping changes no value.)"""
+    return attention_blockwise(q, k, v, causal=causal, window=window,
+                               scale=scale, q_chunk=q.shape[2], kv_chunk=BK)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype (f32, f16 or bf16; math in f32). `scale` overrides 1/sqrt(D).
+
+    On a CUDA tensor this launches K4; on a CPU tensor it runs
+    `flash_attention_plain`. A kernel launch counts one; the plain version
+    counts none.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, window, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    if B * Hq > 65535:
+        raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = _lib.load("flash_attention")
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
+        Sq, Skv, D, int(causal), -1 if window is None else int(window),
+        float(1.0 / (D ** 0.5) if scale is None else scale),
+        _DTYPES[q.dtype], _lib.stream_ptr(q))
+    _lib.check(lib, err, "flash_attention")
+    _lib.count_launch("flash_attention")
+    return out

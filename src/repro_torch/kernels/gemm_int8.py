@@ -47,11 +47,10 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor,
     `requant_mult` (a scalar or per-channel (N,) f32) is given.
 
     On a CUDA tensor this launches K1 (leading axes fold into M: the weights
-    are shared); on a CPU tensor it runs `gemm_int8_plain`. Every call counts
-    one launch.
+    are shared); on a CPU tensor it runs `gemm_int8_plain`. A kernel launch
+    counts one; the plain version counts none.
     """
     _check(x, w)
-    _lib.count_launch("gemm_int8")
     if x.device.type == "cpu":
         return gemm_int8_plain(x, w, requant_mult)
     if x.device.type != "cuda":
@@ -71,4 +70,5 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor,
         1 if mult is None else mult.numel(), out.data_ptr(),
         x2.shape[0], K, N, _lib.stream_ptr(x))
     _lib.check(lib, err, "gemm_int8")
+    _lib.count_launch("gemm_int8")
     return out.reshape(*lead, M, N)

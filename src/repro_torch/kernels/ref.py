@@ -1,11 +1,14 @@
-"""Plain-torch oracles for the integer kernels of this package.
+"""Plain-torch oracles for the kernels of this package.
 
-These define the numerics; the CUDA kernels must match them bit-exactly.
-They run on any device (CPU in the tests, the GPU in `chip_smoke.py`'s
-kernel checks). Every function takes one sample, exactly as its twin in the
-JAX package, and also accepts a leading batch axis where noted.
+The integer ops define the numerics of K1-K3; the CUDA kernels must match
+them bit-exactly. They run on any device (CPU in the tests, the GPU in
+`chip_smoke.py`'s kernel checks). Every integer function takes one sample,
+exactly as its twin in the JAX package, and also accepts a leading batch
+axis where noted.
 
-The float ops (flash attention, SSM scans) arrive with the LM slice.
+The float ops (attention, the gated linear scan) are the LM path's
+oracles, computed in float32: `flash_attention` is the full-softmax
+reference of K4, `ssm_scan` / `ssm_scan_sequential` those of K5.
 """
 
 from __future__ import annotations
@@ -155,3 +158,89 @@ def round_half_even_div(s: torch.Tensor, n: int) -> torch.Tensor:
     r = s - q * n
     up = (2 * r > n) | ((2 * r == n) & (q % 2 != 0))
     return q + up.to(torch.int32)
+
+
+# -- attention ----------------------------------------------------------------
+
+NEG = -1e30          # the masked-logit sentinel of the JAX package's kernels
+
+
+def attention_mask(Sq: int, Skv: int, causal: bool, window: int | None,
+                   device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: query i attends to kv j iff j <= i + (Skv - Sq)
+    (causal, with the decode offset) and j > i + (Skv - Sq) - window."""
+    offs = Skv - Sq
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi + offs
+    if window is not None:
+        mask &= kj > qi + offs - window
+    return mask
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Full-softmax GQA attention oracle.
+
+    q: (B, Hq, Sq, D), k/v: (B, Hkv, Skv, D); Hq % Hkv == 0.
+    `window` = sliding-window size, None = full. Masked logits are the
+    `-1e30` sentinel (not -inf), as in the JAX package's oracle.
+    """
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Skv, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qf = q.float() * scale
+    kf = k.float()
+    vf = v.float()
+    qg = qf.reshape(B, Hkv, g, Sq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, kf)
+    mask = attention_mask(Sq, Skv, causal, window, q.device)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+# -- first-order gated scan (Mamba2 / linear-recurrence family) ----------------
+
+def ssm_scan(a: torch.Tensor, x: torch.Tensor,
+             h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Diagonal gated linear recurrence h_t = a_t * h_{t-1} + x_t over
+    (B, T, D) in float32, as a log-step doubling scan: after the step with
+    shift s, (a_t, x_t) hold the composition of the 2s steps ending at t.
+    Equal to the sequential recurrence up to float reassociation."""
+    a = a.float()
+    x = x.float()
+    if h0 is not None:
+        x = x.clone()
+        x[:, 0] = x[:, 0] + a[:, 0] * h0.float()
+    T = x.shape[1]
+    shift = 1
+    while shift < T:
+        a_prev = torch.ones_like(a)
+        a_prev[:, shift:] = a[:, :-shift]
+        x_prev = torch.zeros_like(x)
+        x_prev[:, shift:] = x[:, :-shift]
+        x = x + a * x_prev
+        a = a * a_prev
+        shift *= 2
+    return x
+
+
+def ssm_scan_sequential(a: torch.Tensor, x: torch.Tensor,
+                        h0: torch.Tensor | None = None) -> torch.Tensor:
+    """Step-by-step reference for the reference (slow, exact order)."""
+    a = a.float()
+    x = x.float()
+    B, T, D = x.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(T):
+        h = a[:, t] * h + x[:, t]
+        ys.append(h)
+    return torch.stack(ys, dim=1)

@@ -1,0 +1,60 @@
+"""K5: the first-order gated linear recurrence h_t = a_t * h_{t-1} + x_t.
+
+The CUDA kernel is `csrc/ssm_scan.cu` (it replaces the JAX package's
+`kernels/ssm_scan.py::ssm_scan_pallas`); `ssm_scan_plain` is its plain
+torch version, which the wrapper takes for CPU tensors only. `h0` seeds
+the carry (the decode path resumes from the cached state); None means 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+from .ref import ssm_scan_sequential
+
+
+def _check(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor | None):
+    if a.dim() != 3 or a.shape != x.shape:
+        raise ValueError(f"ssm_scan: a {tuple(a.shape)} and x "
+                         f"{tuple(x.shape)} must both be (B, T, D)")
+    if h0 is not None and tuple(h0.shape) != (x.shape[0], x.shape[2]):
+        raise ValueError(f"ssm_scan: h0 {tuple(h0.shape)} is not (B, D) = "
+                         f"{(x.shape[0], x.shape[2])}")
+    devs = {a.device, x.device} | ({h0.device} if h0 is not None else set())
+    if len(devs) != 1:
+        raise ValueError(f"ssm_scan: operands on {sorted(map(str, devs))}")
+
+
+# The kernel's function in plain torch: the recurrence walked in order over
+# T in float32, h = a_t * h + x_t (a multiply and an add, each rounded, as
+# in the kernel) -- the step-by-step oracle itself.
+ssm_scan_plain = ssm_scan_sequential
+
+
+def ssm_scan(a: torch.Tensor, x: torch.Tensor,
+             h0: torch.Tensor | None = None) -> torch.Tensor:
+    """a, x (B, T, D) -> y (B, T, D) f32 with y_t = a_t * y_{t-1} + x_t,
+    y_{-1} = h0 (B, D) or 0.
+
+    On a CUDA tensor this launches K5; on a CPU tensor it runs
+    `ssm_scan_plain`. A kernel launch counts one; the plain version counts
+    none.
+    """
+    _check(a, x, h0)
+    if x.device.type == "cpu":
+        return ssm_scan_plain(a, x, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: no kernel for device {x.device}")
+    B, T, D = x.shape
+    a = a.float().contiguous()
+    x = x.float().contiguous()
+    h0 = None if h0 is None else h0.float().contiguous()
+    y = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
+    lib = _lib.load("ssm_scan")
+    err = lib.ssm_scan_launch(a.data_ptr(), x.data_ptr(),
+                              None if h0 is None else h0.data_ptr(),
+                              y.data_ptr(), B, T, D, _lib.stream_ptr(x))
+    _lib.check(lib, err, "ssm_scan")
+    _lib.count_launch("ssm_scan")
+    return y

@@ -1,0 +1,47 @@
+"""LM model zoo of the port: the dense and hybrid families, in torch.
+
+`params_from_numpy` carries the JAX package's parameters across (each leaf
+converted with `np.asarray` on that side), keeping dtypes."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .serve import cache_spec, decode_step, init_cache, prefill_step
+from .transformer import forward_hidden, init_params
+
+
+def _leaf_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.array(arr, order="C")       # an owned, writable copy
+    if arr.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in from_numpy: carry
+        # the bits across as int16 and view them as bfloat16
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The port's params from the JAX package's params `tree` (a nested
+    dict whose leaves are numpy arrays, e.g. the JAX params mapped through
+    `np.asarray`), on `device`, dtypes kept. The layouts are the same, so
+    this is a tree map."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_from_numpy(node, device)
+    return conv(tree)
+
+
+def params_to(params, device):
+    """`params` with every leaf on `device` (leaves already there are
+    kept, not copied)."""
+    return {k: (params_to(v, device) if isinstance(v, dict)
+                else v.to(device)) for k, v in params.items()}
+
+
+__all__ = ["ModelConfig", "init_params", "forward_hidden", "prefill_step",
+           "decode_step", "init_cache", "cache_spec", "params_from_numpy", "params_to"]

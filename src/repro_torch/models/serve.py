@@ -1,0 +1,260 @@
+"""Serving paths: prefill (fill KV/state caches, return last-token logits)
+and decode (one token against a fixed-size cache) for the dense and hybrid
+families.
+
+Caches are the JAX package's: stacked on the layer dim, with a fixed
+`max_len`, so a decode step has static shapes (the property the paper's
+static scheduling requires; `repro_torch.core` computes WCET bounds for
+exactly this step). The hybrid family runs in groups of `attn_every`
+Mamba2 layers plus one application of the shared attention block, whose
+KV cache has one slab per application, then the tail of
+`num_layers % attn_every` Mamba2 layers.
+
+Per-row positions: `cache["pos"]` is a scalar (every row at one position,
+as after `prefill_step`) or a `(B,)` tensor (continuous batching, each
+slot at its own position). The decode step batches natively over rows
+where the JAX package vmaps a batch-1 step: RoPE angles, the cache write
+and the attention mask are per row. A write index past the cache is
+clamped to `max_len - 1`, as `jax.lax.dynamic_update_slice` clamps its
+start index (an idle slot's position keeps growing). Steps are functional:
+the caller's cache is not modified.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .attention import (attn_out, attend, decode_attend, decode_attend_int8,
+                        qkv_proj, quantize_kv)
+from .config import ModelConfig
+from .layers import embed_apply, make_norm, mlp_apply
+from .ssm import ssm_apply
+from .transformer import (_embed_with_frontend, _unembed_weight,
+                          check_family, layer)
+
+
+def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int, int]:
+    period = max(1, cfg.attn_every)
+    return period, cfg.num_layers // period, cfg.num_layers % period
+
+
+# -- cache construction ----------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
+               enc_len: int = 0) -> dict:
+    """{leaf: (shape, dtype)} of the decode cache."""
+    check_family(cfg)
+    dt = cfg.torch_dtype
+    L, Hkv, hd, D = cfg.num_layers, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    if cfg.family == "dense":
+        if cfg.kv_cache_dtype == "int8":
+            return {"k": ((L, batch, Hkv, max_len, hd), torch.int8),
+                    "v": ((L, batch, Hkv, max_len, hd), torch.int8),
+                    "k_scale": ((L, batch, Hkv, max_len), torch.float32),
+                    "v_scale": ((L, batch, Hkv, max_len), torch.float32),
+                    "pos": ((), torch.int32)}
+        return {"k": ((L, batch, Hkv, max_len, hd), dt),
+                "v": ((L, batch, Hkv, max_len, hd), dt),
+                "pos": ((), torch.int32)}
+    Din, N = 2 * D, cfg.ssm_state
+    _, napp, _ = _hybrid_groups(cfg)
+    return {"ssm_state": ((L, batch, Din, N), torch.float32),
+            "conv": ((L, batch, cfg.ssm_conv - 1, Din), dt),
+            "k": ((max(1, napp), batch, Hkv, max_len, hd), dt),
+            "v": ((max(1, napp), batch, Hkv, max_len, hd), dt),
+            "pos": ((), torch.int32)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               enc_len: int = 0, device="cuda") -> dict:
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in cache_spec(cfg, batch, max_len,
+                                              enc_len).items()}
+
+
+def _last_logits(cfg, params, h):
+    _, norm = make_norm(cfg.norm)
+    h = norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return (h @ _unembed_weight(cfg, params)).float()
+
+
+def _place(cache_slab, fresh):
+    """Write the S prefilled positions into a (possibly longer) slab: the
+    position axis is dim 3 of the (L, B, H, max_len[, hd]) slabs."""
+    out = cache_slab.clone()
+    out[:, :, :, :fresh.shape[3]] = fresh.to(cache_slab.dtype)
+    return out
+
+
+# -- prefill ----------------------------------------------------------------------
+
+def prefill_step(cfg: ModelConfig):
+    """(params, batch, cache) -> (last_logits (B,1,V) f32, filled cache)."""
+    check_family(cfg)
+    _, norm = make_norm(cfg.norm)
+    dt = cfg.torch_dtype
+
+    def fn(params, batch, cache):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)
+        pos = torch.tensor(S - 1, dtype=torch.int32, device=tokens.device)
+
+        if cfg.family == "dense":
+            x = _embed_with_frontend(cfg, params, batch)
+            ks, vs = [], []
+            for i in range(cfg.num_layers):
+                pl_ = layer(params["layers"], i)
+                z = norm(pl_["ln1"], x, cfg.norm_eps)
+                q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
+                o = attend(q, k, v, causal=True, window=cfg.sliding_window)
+                x = x + attn_out(pl_["attn"], o, cfg)
+                z = norm(pl_["ln2"], x, cfg.norm_eps)
+                x = x + mlp_apply(pl_["mlp"], z, cfg.act)
+                ks.append(k)
+                vs.append(v)
+            k_all, v_all = torch.stack(ks), torch.stack(vs)
+            if cfg.kv_cache_dtype == "int8":
+                kq, ksc = quantize_kv(k_all)
+                vq, vsc = quantize_kv(v_all)
+                new_cache = {"k": _place(cache["k"], kq),
+                             "v": _place(cache["v"], vq),
+                             "k_scale": _place(cache["k_scale"], ksc),
+                             "v_scale": _place(cache["v_scale"], vsc),
+                             "pos": pos}
+            else:
+                new_cache = {"k": _place(cache["k"], k_all.to(dt)),
+                             "v": _place(cache["v"], v_all.to(dt)),
+                             "pos": pos}
+            return _last_logits(cfg, params, x), new_cache
+
+        x = embed_apply(params["embed"], tokens)
+        shared = params["shared_attn"]
+        period, G, R = _hybrid_groups(cfg)
+        st, cc, ks, vs = [], [], [], []
+
+        def ssm_once(h, i):
+            pl_ = layer(params["layers"], i)
+            z = norm(pl_["ln1"], h, cfg.norm_eps)
+            y, (s_new, c_new) = ssm_apply(pl_["ssm"], z, cfg)
+            st.append(s_new)
+            cc.append(c_new.to(dt))
+            return h + y
+
+        for grp in range(G):
+            for i in range(grp * period, (grp + 1) * period):
+                x = ssm_once(x, i)
+            z = norm(shared["ln1"], x, cfg.norm_eps)
+            q, k, v = qkv_proj(shared["attn"], z, cfg, positions)
+            o = attend(q, k, v, causal=True)
+            x = x + attn_out(shared["attn"], o, cfg)
+            z = norm(shared["ln2"], x, cfg.norm_eps)
+            x = x + mlp_apply(shared["mlp"], z, cfg.act)
+            ks.append(k.to(dt))
+            vs.append(v.to(dt))
+        for i in range(G * period, G * period + R):
+            x = ssm_once(x, i)
+        new_cache = {"ssm_state": torch.stack(st), "conv": torch.stack(cc),
+                     "k": _place(cache["k"], torch.stack(ks)) if ks
+                     else cache["k"].clone(),
+                     "v": _place(cache["v"], torch.stack(vs)) if vs
+                     else cache["v"].clone(),
+                     "pos": pos}
+        return _last_logits(cfg, params, x), new_cache
+
+    return fn
+
+
+# -- decode -----------------------------------------------------------------------
+
+def _write_rows(slab, fresh, idx):
+    """slab (B, H, Smax, ...) with row b's position idx[b] set to fresh
+    (B, H, ...), in place (the slab is the step's own copy)."""
+    B = slab.shape[0]
+    slab[torch.arange(B, device=slab.device), :, idx] = fresh.to(slab.dtype)
+
+
+def decode_step(cfg: ModelConfig):
+    """(params, cache, tokens (B,1)) -> (logits (B,1,V) f32, cache).
+
+    Each row's new token sits at cache["pos"] + 1 (scalar or per row).
+    """
+    check_family(cfg)
+    _, norm = make_norm(cfg.norm)
+
+    def _attn_step(pl_, h, k_l, v_l, pos, idx, window):
+        """One-token attention against this layer's cache slab (written in
+        place: k_l / v_l are this step's copies)."""
+        z = norm(pl_["ln1"], h, cfg.norm_eps)
+        q, k, v = qkv_proj(pl_["attn"], z, cfg, pos.reshape(-1, 1, 1))
+        _write_rows(k_l, k[:, :, 0], idx)
+        _write_rows(v_l, v[:, :, 0], idx)
+        o = decode_attend(q, k_l, v_l, pos, window=window)
+        return h + attn_out(pl_["attn"], o, cfg)
+
+    def _attn_step_int8(pl_, h, k_l, ks_l, v_l, vs_l, pos, idx, window):
+        z = norm(pl_["ln1"], h, cfg.norm_eps)
+        q, k, v = qkv_proj(pl_["attn"], z, cfg, pos.reshape(-1, 1, 1))
+        kq, ksc = quantize_kv(k)
+        vq, vsc = quantize_kv(v)
+        _write_rows(k_l, kq[:, :, 0], idx)
+        _write_rows(v_l, vq[:, :, 0], idx)
+        _write_rows(ks_l, ksc[:, :, 0], idx)
+        _write_rows(vs_l, vsc[:, :, 0], idx)
+        o = decode_attend_int8(q, k_l, ks_l, v_l, vs_l, pos, window=window)
+        return h + attn_out(pl_["attn"], o, cfg)
+
+    def fn(params, cache, tokens):
+        B = tokens.shape[0]
+        pos = (cache["pos"] + 1).to(torch.int32)
+        # the cache write index: per row, clamped into the cache like the
+        # start index of jax.lax.dynamic_update_slice
+        smax = cache["k"].shape[3]
+        idx = torch.clamp(pos.reshape(-1), 0, smax - 1).expand(B)
+        x = embed_apply(params["embed"], tokens)
+
+        if cfg.family == "dense":
+            new = {k: v.clone() for k, v in cache.items() if k != "pos"}
+            for i in range(cfg.num_layers):
+                pl_ = layer(params["layers"], i)
+                if cfg.kv_cache_dtype == "int8":
+                    x = _attn_step_int8(pl_, x, new["k"][i], new["k_scale"][i],
+                                        new["v"][i], new["v_scale"][i], pos,
+                                        idx, cfg.sliding_window)
+                else:
+                    x = _attn_step(pl_, x, new["k"][i], new["v"][i], pos, idx,
+                                   cfg.sliding_window)
+                z = norm(pl_["ln2"], x, cfg.norm_eps)
+                x = x + mlp_apply(pl_["mlp"], z, cfg.act)
+            return _last_logits(cfg, params, x), {**new, "pos": pos}
+
+        shared = params["shared_attn"]
+        period, G, R = _hybrid_groups(cfg)
+        k_new, v_new = cache["k"].clone(), cache["v"].clone()
+        st, cc = [], []
+
+        def ssm_once(h, i):
+            pl_ = layer(params["layers"], i)
+            z = norm(pl_["ln1"], h, cfg.norm_eps)
+            c_in = cache["conv"][i]
+            y, (s_new, c_new) = ssm_apply(
+                pl_["ssm"], z, cfg, state=cache["ssm_state"][i],
+                conv_cache=c_in.to(z.dtype))
+            st.append(s_new)
+            cc.append(c_new.to(c_in.dtype))
+            return h + y
+
+        for grp in range(G):
+            for i in range(grp * period, (grp + 1) * period):
+                x = ssm_once(x, i)
+            x = _attn_step({"ln1": shared["ln1"], "attn": shared["attn"]},
+                           x, k_new[grp], v_new[grp], pos, idx, None)
+            z = norm(shared["ln2"], x, cfg.norm_eps)
+            x = x + mlp_apply(shared["mlp"], z, cfg.act)
+        for i in range(G * period, G * period + R):
+            x = ssm_once(x, i)
+        return _last_logits(cfg, params, x), \
+            {"ssm_state": torch.stack(st), "conv": torch.stack(cc),
+             "k": k_new, "v": v_new, "pos": pos}
+
+    return fn

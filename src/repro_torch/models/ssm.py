@@ -1,0 +1,160 @@
+"""Mamba2-style selective state-space block (diagonal A, per-head scalar
+decay, SSD simplification) with O(1)-state decode — the sub-quadratic block
+of zamba2 (hybrid).
+
+Structure per block:
+    in_proj -> (xin, z); causal depthwise conv(k=4) on xin; data-dependent
+    (dt, B, C) projections; recurrence
+        h_t[c, n] = a_t[head(c)] * h_{t-1}[c, n] + dt_t[head(c)] * B_t[n] * x_t[c]
+        y_t[c]    = sum_n C_t[n] * h_t[c, n] + D_skip[c] * x_t[c]
+    gated output: out_proj(y * silu(z)).
+
+Decode (a carried state) and short prefills (S <= 8) run the recurrence on
+the flattened (channel, state) pairs through `kernels.ops.ssm_scan` (K5 on
+a CUDA tensor, its plain version on the CPU); longer prefills take the
+chunked SSD form (`_ssd_chunked`), plain torch as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import normal_init
+from ..kernels import ops as kops
+
+
+def ssm_init(generator, cfg: ModelConfig, dtype, device=None):
+    D = cfg.d_model
+    Din = 2 * D
+    N = cfg.ssm_state
+    H = max(1, Din // 64)             # heads of 64 channels
+
+    def w(shape, scale=0.02):
+        return normal_init(generator, shape, dtype, scale, device=device)
+
+    return {
+        "in_proj": w((D, 2 * Din)),
+        "conv_w": w((cfg.ssm_conv, Din), 0.1),
+        "bc_proj": w((D, 2 * N)),
+        "dt_proj": w((D, H), 0.01),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "a_log": torch.zeros((H,), dtype=torch.float32, device=device),
+        "d_skip": torch.ones((Din,), dtype=torch.float32, device=device),
+        "out_proj": w((Din, D)),
+    }
+
+
+def _causal_conv(x, w, cache=None):
+    """x (B,T,C), w (k,C) depthwise causal; cache (B,k-1,C) for decode."""
+    k = w.shape[0]
+    if cache is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([cache, x], dim=1)
+    T = x.shape[1]
+    out = sum(xp[:, i:i + T, :] * w[i][None, None, :] for i in range(k))
+    new_cache = xp[:, -(k - 1):, :] if k > 1 else None
+    return F.silu(out), new_cache
+
+
+def ssm_apply(p, x, cfg: ModelConfig, state=None, conv_cache=None):
+    """x (B,S,D) -> (y (B,S,D), (state, conv_cache)).
+
+    state (B, Din, N) carries across calls (decode); None -> zeros.
+    """
+    B, S, D = x.shape
+    Din = 2 * D
+    N = cfg.ssm_state
+    H = max(1, Din // 64)
+    ch_per_h = Din // H
+
+    xz = x @ p["in_proj"]
+    xin, z = torch.chunk(xz, 2, dim=-1)                    # (B,S,Din)
+    xin, new_conv = _causal_conv(xin, p["conv_w"], conv_cache)
+    bc = x @ p["bc_proj"]
+    Bmat, Cmat = torch.chunk(bc.float(), 2, dim=-1)        # (B,S,N)
+    dt = F.softplus(x.float() @ p["dt_proj"].float() + p["dt_bias"])
+    a = torch.exp(-dt * torch.exp(p["a_log"]))             # (B,S,H) in (0,1)
+
+    xf = xin.float()
+    # broadcast per-head decay to channels, inputs to (c, n) pairs
+    a_c = torch.repeat_interleave(a, ch_per_h, dim=-1)     # (B,S,Din)
+    drive = torch.repeat_interleave(dt, ch_per_h, dim=-1) * xf
+    # flattened (c, n) scan: decay same for all n of a channel
+    a_cn = a_c[..., None].expand(B, S, Din, N).reshape(B, S, -1)
+    x_cn = (drive[..., None] * Bmat[:, :, None, :]).reshape(B, S, -1)
+
+    if state is not None or S <= 8:
+        # decode / short-sequence path: explicit recurrence on the
+        # flattened (channel, state) pairs, the carry seeded from the
+        # decode state through K5's h0 operand
+        h0 = None if state is None else state.reshape(B, Din * N)
+        ys = kops.ssm_scan(a_cn, x_cn, h0)
+        h = ys.reshape(B, S, Din, N)
+        y = torch.einsum("bscn,bsn->bsc", h, Cmat) + p["d_skip"] * xf
+        new_state = h[:, -1]                               # (B, Din, N)
+    else:
+        # prefill: the Mamba2 SSD chunked form (per-head (c x c) masked
+        # matmuls over (B,S,N) + (B,S,Din) streams)
+        y, h_fin = _ssd_chunked(a, dt, Bmat, Cmat, xf, H, ch_per_h)
+        y = y + p["d_skip"] * xf
+        new_state = h_fin.reshape(B, Din, N)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], (new_state, new_conv)
+
+
+def _ssd_chunked(a, dt, Bmat, Cmat, xf, H: int, ch: int,
+                 chunk: int = 128):
+    """Chunked SSD: y_t = sum_{s<=t} prod(a)(s,t] * (C_t.B_s) dt_s x_s
+    + carry, computed with per-head (c x c) masked matmuls, one chunk after
+    another (the JAX package's `lax.scan`). All decay ratios are exp of
+    non-positive log-sums -> bounded in (0, 1].
+
+    a, dt: (B,S,H); Bmat/Cmat: (B,S,N); xf: (B,S,Din=H*ch) f32.
+    Returns y (B,S,Din), final state (B,H,ch,N).
+    """
+    B, S, Hn = a.shape
+    N = Bmat.shape[-1]
+    c = min(chunk, S)
+    Sp = -(-S // c) * c
+
+    def pad(t):
+        return F.pad(t, (0, 0, 0, Sp - S))
+
+    # pad decays with a=1 (log 0) so padded steps carry state unchanged,
+    # and dt=0 so they inject nothing
+    la = pad(torch.log(torch.clamp(a, min=1e-30)))
+    dtp, Bp, Cp, xp = pad(dt), pad(Bmat), pad(Cmat), pad(xf)
+    mask = torch.tril(torch.ones((c, c), dtype=torch.float32,
+                                 device=a.device))
+    h = torch.zeros((B, Hn, ch, N), dtype=torch.float32, device=a.device)
+    ys = []
+    for s0 in range(0, Sp, c):
+        sl = slice(s0, s0 + c)
+        la_k, dt_k, B_k, C_k = la[:, sl], dtp[:, sl], Bp[:, sl], Cp[:, sl]
+        x_k = xp[:, sl].reshape(B, c, Hn, ch)
+        l = torch.cumsum(la_k, dim=1)                      # (B,c,H)
+        scores = torch.einsum("btn,bsn->bts", C_k, B_k)    # (B,c,c)
+        decay = torch.exp(torch.clamp(
+            l[:, :, None, :] - l[:, None, :, :], -60.0, 0.0))  # (B,t,s,H)
+        M = scores[..., None] * decay * mask[None, :, :, None]
+        u = x_k * dt_k[..., None]                          # (B,c,H,ch)
+        y = torch.einsum("btsh,bshc->bthc", M, u)
+        # inter-chunk: contribution of the carried state
+        y = y + torch.einsum("btn,bhcn->bthc", C_k, h) \
+            * torch.exp(l)[..., None]
+        # state update: h' = exp(l_end) h + sum_s exp(l_end - l_s) B_s (x)
+        l_end = l[:, -1]                                   # (B,H)
+        w = torch.exp(torch.clamp(l_end[:, None, :] - l, -60.0, 0.0))
+        h = h * torch.exp(l_end)[..., None, None]
+        h = h + torch.einsum("bsn,bshc->bhcn", B_k, u * w[..., None])
+        ys.append(y.reshape(B, c, Hn * ch))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y, h
+
+
+def ssm_decode(p, x, cfg: ModelConfig, state, conv_cache):
+    """Single-token step; state (B,Din,N), conv_cache (B,k-1,Din)."""
+    return ssm_apply(p, x, cfg, state=state, conv_cache=conv_cache)

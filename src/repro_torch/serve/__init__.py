@@ -6,13 +6,19 @@
     srv.run(hyperperiods=3)
     ticket.result()        # output + latency + WCET bound + deadline verdict
 
-`BatchedInferenceEngine` is the thin batched-CNN wrapper; all deadline
-accounting lives in `DeadlineMonitor`, all multi-network execution in
-`Server`. LM decode serving, fault injection and mode changes arrive with
-later slices of the port.
+`BatchedInferenceEngine` / `ServeEngine` remain as thin wrappers (batched
+CNN inference, LM prefill/decode); all deadline accounting lives in
+`DeadlineMonitor`, all multi-network execution in `Server`. LM decode
+traffic is served *continuously* (`repro_torch.serve.continuous`):
+`Server.register_decode` installs a slot-indexed `ContinuousEngine` where
+requests enter and leave the batch mid-stream. Fault injection and mode
+changes arrive with a later slice of the port.
 """
 
-from .engine import BatchedInferenceEngine
+from .continuous import (ContinuousEngine, ContinuousRequest, DecodeState,
+                         LMBackend, ResultTokens, SlotError, StepInfo,
+                         ToyBackend)
+from .engine import BatchedInferenceEngine, Request, ServeEngine
 from .monitor import DeadlineMonitor, DeadlineVerdict
 from .runtime import (AdmissionError, BackpressureError, OverloadPolicy,
                       RequestQueue, ServeError, Server, Ticket, TicketResult)
@@ -20,4 +26,7 @@ from .runtime import (AdmissionError, BackpressureError, OverloadPolicy,
 __all__ = ["Server", "Ticket", "TicketResult", "RequestQueue",
            "ServeError", "AdmissionError", "BackpressureError",
            "DeadlineMonitor", "DeadlineVerdict", "OverloadPolicy",
-           "BatchedInferenceEngine"]
+           "BatchedInferenceEngine", "Request", "ServeEngine",
+           "ContinuousEngine", "ContinuousRequest", "DecodeState",
+           "LMBackend", "ResultTokens", "SlotError", "StepInfo",
+           "ToyBackend"]

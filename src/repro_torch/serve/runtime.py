@@ -1,11 +1,13 @@
 """`repro_torch.serve.Server` — the one front door of the serving layer.
 
 What `repro_torch.compile` is to the compiler pipeline, `Server` is to
-serving: compiled CNNs execute against traffic through one object with one
-lifecycle:
+serving: compiled CNNs and LM decode networks execute against traffic
+through one object with one lifecycle:
 
     srv = Server(machine, backend="cuda")                    # device="cuda"
     srv.register("detector", yolo_graph, period_s=1/30)     # admission-checked
+    srv.register_decode("lm", lm_cfg, period_s=0.05,        # continuous
+                        params=params)                       # batching
     t = srv.submit("detector", frame)                        # -> Ticket
     srv.run(hyperperiods=3)                                  # release order
     r = t.result()          # output + latency + bound + deadline verdict
@@ -36,9 +38,12 @@ The pieces, mirroring the paper's deployment story:
     `Deployment` artifacts plus the taskset metadata into one multi-network
     bundle.
 
+  * **continuous decode** — `register_decode` admits an LM config as one
+    slot-batched decode step per period and serves it through a
+    `ContinuousEngine` (requests enter and leave the batch mid-stream).
+
 Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-LM decode networks (`register_decode`, a model config as `net`), fault
-injection and recovery (`enable_resilience`) and mode changes
+fault injection and recovery (`enable_resilience`) and mode changes
 (`switch_mode`).
 
 Every submitted ticket reaches a terminal state — "done", "degraded",
@@ -62,11 +67,11 @@ from ..core.compiled import resolve_device
 from ..core.graph import Graph
 from ..core.taskset import Job, NetworkSpec
 from ..core.wcet import NetworkVerdict, TasksetReport, analyze_taskset
+from ..core.lmgraph import lm_decode_graph
 from ..hw import HardwareModel
+from ..models.config import ModelConfig
 from .monitor import DeadlineMonitor, DeadlineVerdict
 
-_LM_ITEM = ("LM decode serving waits for slice 2 of the port (ROADMAP.md, "
-            "queue 1, items 10-12)")
 _RESILIENCE_ITEM = ("serve faults, modes and resilience wait for their port "
                     "(ROADMAP.md, queue 1, item 9)")
 
@@ -261,18 +266,24 @@ class _Network:
     runner: Callable | None = None       # batched runner at the slot count
     engine: object = None                # BatchedInferenceEngine (attach mode)
     queue: RequestQueue | None = None
+    cengine: object = None               # ContinuousEngine (decode networks)
+    sustained: object = None             # SustainedServeVerdict (if declared)
+    inflight: dict = dataclasses.field(default_factory=dict)  # rid -> Ticket
     shed: bool = False                   # paused by overload control
 
 
-def _as_graph(net, name: str) -> Graph:
-    """Accept a Graph. A model config (lowered to an LM decode step in the
-    JAX package) is not ported yet."""
+def _as_graph(net, name: str, *, batch: int, cache_len: int,
+              max_layers: int | None) -> Graph:
+    """Accept a Graph directly or lower a ModelConfig to one decode step
+    (truncated to max_layers for tractable schedule construction)."""
     if isinstance(net, Graph):
         return net
-    if hasattr(net, "num_layers"):
-        raise NotImplementedError(f"network {name!r}: {_LM_ITEM}")
-    raise TypeError(f"expected a Graph for network {name!r}, got "
-                    f"{type(net).__name__}")
+    if isinstance(net, ModelConfig):
+        L = (min(net.num_layers, max_layers) if max_layers is not None
+             else net.num_layers)
+        return lm_decode_graph(net, batch, cache_len, layers=L)
+    raise TypeError(f"expected a Graph or ModelConfig for network "
+                    f"{name!r}, got {type(net).__name__}")
 
 
 class Server:
@@ -367,7 +378,9 @@ class Server:
             deadline_s: float | None = None, *,
             criticality: int = 0,
             step_fn: Callable | None = None, slots: int = 1,
-            autorun: bool = False, params: dict | None = None) -> None:
+            autorun: bool = False, params: dict | None = None,
+            batch: int = 1, cache_len: int = 256,
+            max_layers: int | None = 4) -> None:
         """Register WITHOUT admission control or executor building — the
         analysis is invalidated and re-run lazily. This is the unchecked
         path `MultiModelEngine.add_graph/add_model` ride on; new code
@@ -381,7 +394,8 @@ class Server:
             raise ServeError(f"network {name!r} already registered")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        graph = _as_graph(net, name)
+        graph = _as_graph(net, name, batch=batch, cache_len=cache_len,
+                          max_layers=max_layers)
         self._nets[name] = _Network(
             spec=NetworkSpec(name, graph, period_s, deadline_s,
                              criticality=criticality),
@@ -415,20 +429,22 @@ class Server:
                  deadline_s: float | None = None, *,
                  criticality: int = 0,
                  step_fn: Callable | None = None, slots: int = 1,
-                 params: dict | None = None) -> NetworkVerdict:
+                 params: dict | None = None, batch: int = 1,
+                 cache_len: int = 256,
+                 max_layers: int | None = 4) -> NetworkVerdict:
         """Admission-controlled registration (the front door).
 
-        Extends the taskset with `net` (a Graph), re-runs the hyperperiod
-        analysis, and — only if the whole extended taskset stays
-        schedulable — compiles the
+        Extends the taskset with `net` (a Graph, or a ModelConfig lowered
+        to one decode step), re-runs the hyperperiod analysis, and — only
+        if the whole extended taskset stays schedulable — compiles the
         network's executable Deployment on the server backend. On an
         unschedulable verdict (`AdmissionError`, `.report` attached) or ANY
         failure along the way, the server atomically rolls back to the
         previously admitted set, which keeps serving untouched.
 
-        Networks whose op kinds have no compiled lowering are admitted for
-        analysis and served through `step_fn` (one request per job:
-        ``step_fn(payload) -> output``).
+        Networks whose op kinds have no compiled lowering (LM decode
+        graphs) are admitted for analysis and served through `step_fn`
+        (one request per job: ``step_fn(payload) -> output``).
 
         `criticality` orders overload shedding: higher levels shed later
         (see `OverloadPolicy`).
@@ -439,7 +455,8 @@ class Server:
         try:
             self.add(name, net, period_s, deadline_s,
                      criticality=criticality, step_fn=step_fn,
-                     slots=slots, params=params)
+                     slots=slots, params=params, batch=batch,
+                     cache_len=cache_len, max_layers=max_layers)
             report = self.analyze()
             if not report.schedulable:
                 raise AdmissionError(
@@ -453,10 +470,82 @@ class Server:
             raise
         return report.verdict_of(name)
 
-    def register_decode(self, name: str, cfg, period_s: float,
-                        deadline_s: float | None = None, **kwargs):
-        """Continuous-batching LM decode networks are not ported yet."""
-        raise NotImplementedError(f"register_decode({name!r}): {_LM_ITEM}")
+    def register_decode(self, name: str, cfg: ModelConfig, period_s: float,
+                        deadline_s: float | None = None, *, params,
+                        criticality: int = 0,
+                        slots: int = 4, prompt_len: int = 16,
+                        max_new_tokens: int = 32, max_len: int = 256,
+                        arrival_rps: float | None = None,
+                        tokens_per_request: float | None = None,
+                        prefill_per_step: int = 1,
+                        max_layers: int | None = 4) -> NetworkVerdict:
+        """Admission-controlled registration of a *continuous-batching* LM
+        decode network (`repro_torch.serve.continuous`).
+
+        The network is analyzed as one slot-batched decode step per period
+        (the fixed-shape graph the WCET bound holds for), then served by a
+        `ContinuousEngine` over an `LMBackend` on the server's device
+        (`params` are moved there): every `step()` job admits up to
+        `prefill_per_step` queued tickets into free slots and runs ONE
+        decode step for all occupied slots — requests enter and leave
+        mid-stream, and each gets a `DeadlineVerdict` against its own
+        deadline. Prompts are left-padded to `prompt_len` (longer ones fail
+        their ticket), so each stream equals the batch-to-completion oracle
+        `ServeEngine.serve`'s regardless of arrival order.
+
+        Admission adds a *sustained-occupancy* check when the expected
+        traffic is declared (`arrival_rps`, and `tokens_per_request` which
+        defaults to `max_new_tokens`): offered token load must not exceed
+        the slot pool's token capacity (`core.wcet.sustained_occupancy`),
+        else `AdmissionError` — a loop that admits such traffic never
+        drains its queue. Rollback semantics match `register`.
+
+        Decode networks are analysis-only in bundles: `save` keeps the
+        graph + taskset row, `load` restores them without the engine —
+        re-register with `register_decode` to resume serving.
+        """
+        from ..core.wcet import sustained_occupancy
+        from ..models import params_to
+        from .continuous import ContinuousEngine, LMBackend
+        snapshot = (dict(self._nets), self.report, self.compiled,
+                    self._cursor, self.hyperperiods_completed,
+                    self.clock_base_s)
+        try:
+            self.add(name, cfg, period_s, deadline_s,
+                     criticality=criticality, slots=slots,
+                     params=params, batch=slots, cache_len=max_len,
+                     max_layers=max_layers)
+            report = self.analyze()
+            if not report.schedulable:
+                raise AdmissionError(
+                    f"admitting {name!r} makes the taskset unschedulable:\n"
+                    f"{report.summary()}", report=report)
+            st = self._nets[name]
+            bound = report.bound(name)
+            if arrival_rps is not None:
+                st.sustained = sustained_occupancy(
+                    name, slots=slots, period_s=period_s,
+                    step_bound_s=bound, arrival_rps=arrival_rps,
+                    tokens_per_request=(tokens_per_request
+                                        or float(max_new_tokens)))
+                if not st.sustained.schedulable:
+                    raise AdmissionError(
+                        f"admitting {name!r} oversubscribes the slot pool:\n"
+                        f"{st.sustained.summary()}")
+            backend = LMBackend(cfg, params_to(params, self.device),
+                                slots=slots, prompt_len=prompt_len,
+                                max_len=max_len)
+            st.cengine = ContinuousEngine(
+                backend, max_tokens=max_new_tokens,
+                prefill_per_step=prefill_per_step, monitor=self.monitor,
+                step_bound_s=bound, default_deadline_s=st.spec.deadline,
+                network=name)
+        except Exception:
+            (self._nets, self.report, self.compiled,
+             self._cursor, self.hyperperiods_completed,
+             self.clock_base_s) = snapshot
+            raise
+        return report.verdict_of(name)
 
     def _build_executor(self, name: str) -> None:
         """Compile the network's Deployment + batched runner on the server
@@ -509,7 +598,7 @@ class Server:
                 f"network {name!r} free-runs a no-arg step_fn every job "
                 f"(MultiModelEngine mode) and does not take submissions")
         if st.runner is None and st.step_fn is None and \
-                st.deployment is None:
+                st.deployment is None and st.cengine is None:
             raise ServeError(
                 f"network {name!r} has no executor: it was added without "
                 f"admission (or is analysis-only) — register it through "
@@ -611,6 +700,8 @@ class Server:
             for i, t in enumerate(tickets):
                 self._finish(t, {k: v[i] for k, v in out.items()},
                              dt, bound, release_abs)
+        elif st.cengine is not None:
+            self._step_continuous(st, release_abs, bound)
         elif st.step_fn is not None and len(st.queue) > 0:
             tickets = st.queue.pop_upto(1)
             (t,) = tickets
@@ -620,6 +711,44 @@ class Server:
             self._finish(t, out, dt, bound, release_abs)
         else:
             self.metrics["idle_jobs"] += 1
+
+    def _step_continuous(self, st: _Network, release_abs: float,
+                         bound: float) -> None:
+        """One hyperperiod job of a continuous decode network: admit up to
+        the engine's per-step prefill budget from the ticket queue, run one
+        slot-batched decode step (the engine checks it against the WCET
+        bound and records occupancy), finish tickets whose streams
+        completed. A ticket's payload is the prompt (list of token ids) or
+        ``{"prompt": [...], "max_new_tokens": n}``."""
+        ce = st.cengine
+        for t in st.queue.pop_upto(ce.admittable()):
+            with self._failing([t]):
+                if isinstance(t.payload, dict):
+                    prompt = t.payload["prompt"]
+                    max_new = t.payload.get("max_new_tokens")
+                else:
+                    prompt, max_new = t.payload, None
+                ce.enqueue(prompt, max_new, rid=t.tid,
+                           deadline_s=t.deadline_s)
+            st.inflight[t.tid] = t
+        if not ce.has_work:
+            self.metrics["idle_jobs"] += 1
+            return
+        # a failed decode step keeps its in-flight requests in the engine
+        # for the NEXT job (the stream is resumable), so no ticket fails here
+        info, _ = self._serve_call(st, [], ce.step)
+        for req in info.finished:
+            # pop defensively: a shed may have resolved the ticket degraded
+            # while its stream was still in flight
+            t = st.inflight.pop(req.rid, None)
+            if t is None:
+                continue
+            t._result = TicketResult(
+                output=list(req.out), latency_s=req.latency_s,
+                response_bound_s=bound * req.steps_held,
+                verdict=req.verdict, release_s=release_abs)
+            t.status = "done"
+            self.metrics["tickets"] += 1
 
     @contextlib.contextmanager
     def _failing(self, tickets: list[Ticket]):
@@ -855,6 +984,23 @@ class Server:
                 "mode": self.mode_name,
                 "breakers": {},          # circuit breakers are not ported
                 "hyperperiods_completed": self.hyperperiods_completed}
+        continuous = {n: {**st.cengine.metrics,
+                          "occupancy": st.cengine.state.occupancy,
+                          "slots": st.cengine.state.slots,
+                          "pending": len(st.cengine.pending)}
+                      for n, st in self._nets.items()
+                      if st.cengine is not None}
+        if continuous:
+            snap["continuous"] = continuous
+        sustained = {n: {"occupancy": st.sustained.occupancy,
+                         "token_capacity_tps":
+                             st.sustained.token_capacity_tps,
+                         "offered_load_tps": st.sustained.offered_load_tps,
+                         "schedulable": st.sustained.schedulable}
+                     for n, st in self._nets.items()
+                     if st.sustained is not None}
+        if sustained:
+            snap["sustained"] = sustained
         return snap
 
     def summary(self) -> str:
@@ -986,7 +1132,7 @@ class Server:
                           "slots": st.slots,
                           "executable": n in deployments,
                           "step_fn": st.step_fn is not None,
-                          "continuous": False}
+                          "continuous": st.cengine is not None}
                          for n, st in self._nets.items()],
             "machine_fingerprint": self.machine.fingerprint(),
             "hyperperiod_s": self.compiled.hyperperiod_s,

@@ -56,7 +56,16 @@ def test_port_imports_without_jax_or_repro():
     for m in ("repro_torch.hw", "repro_torch.core.compiled",
               "repro_torch.core.megakernel", "repro_torch.kernels.gemm_int8",
               "repro_torch.kernels.conv2d_im2col", "repro_torch.analysis",
-              "repro_torch.compiler.backends", "repro_torch.serve.runtime"):
+              "repro_torch.compiler.backends", "repro_torch.serve.runtime",
+              "repro_torch.configs", "repro_torch.configs.zamba2_1p2b",
+              "repro_torch.core.lmgraph", "repro_torch.kernels.ops",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ssm_scan", "repro_torch.models",
+              "repro_torch.models.config", "repro_torch.models.layers",
+              "repro_torch.models.rope", "repro_torch.models.attention",
+              "repro_torch.models.ssm", "repro_torch.models.transformer",
+              "repro_torch.models.serve", "repro_torch.serve.engine",
+              "repro_torch.serve.continuous"):
         assert m in info["mods"]
 
 

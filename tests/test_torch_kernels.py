@@ -8,6 +8,9 @@ against `repro.kernels.ref`. The `cuda`-marked test holds the CUDA kernels
 against the plain versions on a GPU and skips without one.
 """
 
+import importlib
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -138,16 +141,27 @@ def test_round_half_even_div_negative_sums():
         assert np.array_equal(got, np.round(s / n).astype(np.int32))
 
 
-def test_wrappers_count_calls_and_refuse_bad_operands(rng):
+def test_wrappers_count_calls_and_refuse_bad_operands(rng, monkeypatch):
+    """On CPU tensors each call takes the plain version, and the launch
+    counters, which count kernel launches only, stay at 0."""
     x = _t(rng.integers(-128, 128, (4, 8)).astype(np.int8))
     w = _t(rng.integers(-128, 128, (8, 3)).astype(np.int8))
+    plain = {}
+    for mod, name in (("gemm_int8", "gemm_int8_plain"),
+                      ("conv2d_im2col", "conv2d_int8_plain")):
+        m = importlib.import_module(f"repro_torch.kernels.{mod}")
+        plain[name] = mock.Mock(wraps=getattr(m, name))
+        monkeypatch.setattr(m, name, plain[name])
     reset_launch_counts()
     gemm_int8(x, w)
     gemm_int8(x, w)
     conv2d_int8(x.reshape(2, 2, 8), w.repeat(9, 1)[:72], kh=3, kw=3,
                 padding=1)
-    assert launch_counts() == {"gemm_int8": 2, "conv2d_int8": 1,
-                               "megakernel": 0}
+    assert plain["gemm_int8_plain"].call_count == 2
+    assert plain["conv2d_int8_plain"].call_count == 1
+    assert launch_counts() == {"gemm_int8": 0, "conv2d_int8": 0,
+                               "megakernel": 0, "flash_attention": 0,
+                               "ssm_scan": 0}
     with pytest.raises(TypeError):
         gemm_int8(x.to(torch.int32), w)
     with pytest.raises(ValueError):

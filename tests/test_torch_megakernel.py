@@ -7,8 +7,10 @@ fallback mode "torch" where the reference says "jax"). K3's plain version
 (`np.array_equal`: integer arithmetic throughout) against the reference's
 `megakernel_batched` in Pallas interpret mode, and the launch invariant —
 at most `num_cores` (or `max_kernels`) launches per program — holds on the
-wrappers' launch counters.
+calls of the kernel wrappers.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -115,24 +117,38 @@ def test_megakernel_plain_bit_exact_vs_jax(preset, kw, jax_outputs):
 @pytest.mark.parametrize("kw", [{}, {"budget": 64 * 1024},
                                 {"max_kernels": 1}, {"max_kernels": 2}])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_launch_invariant_on_counters(preset, kw):
-    """Real launches (plain-version calls on the CPU) per program: exactly
-    the plan's kernel-emitting segments, at most the cap, and fewer than
-    the per-op path's."""
+def test_launch_invariant_on_counters(preset, kw, monkeypatch):
+    """Calls of the kernel wrappers (each one launch on the card; on the
+    CPU the plain version, which the launch counters do not count) per
+    program: exactly the plan's kernel-emitting segments, at most the cap,
+    and fewer than the per-op path's."""
+    spies = []
+    for mod, name in ((TMK, "run_fused"), (TC, "gemm_int8"),
+                      (TC, "conv2d_int8")):
+        spies.append(mock.Mock(wraps=getattr(mod, name)))
+        monkeypatch.setattr(mod, name, spies[-1])
+
+    def wrapper_calls():
+        n_ = sum(s.call_count for s in spies)
+        for s in spies:
+            s.reset_mock()
+        return n_
+
     _, tprog = _programs(preset)
     fn = TMK.megakernel_batched(tprog, "cpu", **kw)
     x = torch.zeros((2,) + PRESETS[preset][1], dtype=torch.int8)
     reset_launch_counts()
+    wrapper_calls()
     fn({"input": x})
-    n = sum(launch_counts().values())
+    n = wrapper_calls()
     segments = TMK.plan_segments(tprog, **kw)
     assert n == sum(s.emits_call for s in segments)
     assert 1 <= n <= kw.get("max_kernels", tprog.num_cores)
-    reset_launch_counts()
     TC.kernel_batched(tprog, "cpu")({"input": x})
-    n_perop = sum(launch_counts().values())
+    n_perop = wrapper_calls()
     if preset == "resnet50":
         assert n <= tprog.num_cores < n_perop
+    assert sum(launch_counts().values()) == 0
 
 
 def test_segment_cores_round_robin():
