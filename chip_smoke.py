@@ -7,13 +7,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: the CUDA kernels from src/repro_torch/csrc (one nvcc each, in
-     parallel, for sm_90a);
-  3. kernels: K1 (int8 GEMM), K2 (implicit-im2col int8 conv) and K3 (the
+     parallel, for sm_90a), and the tensor-core instructions in their SASS
+     (cuobjdump: HMMA in K4's 16-bit kernels, IMMA in K2);
+  3. kernels: K1 (int8 GEMM), K2 (implicit-im2col int8 conv on the int8
+     tensor cores, split over K inside its launch) and K3 (the
      fused-segment megakernel) against their plain torch versions on the
      card, bit for bit (torch.equal), with device times beside the plain
      version's and, where one PyTorch call computes the same function,
      that call's (every time of a kernel, plain version or library call is
-     `graph_ms`: calls replayed from a CUDA graph);
+     `graph_ms`: calls replayed from a CUDA graph); K2 also at every tiled
+     conv of the main path, batch 1 and 8, with its grid (tiles x splits);
   4. main path: int8 ResNet50-224 compiled for scaled_paper_machine(64) and
      run through `Deployment.run` on the megakernel path, the per-op kernel
      path and the plain "torch" backend at batch 1 and 8, each output bit
@@ -21,8 +24,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      launches per program (wrapper counters, confirmed by torch.profiler);
   5. serving: a `Server` on the "cuda" backend answers 8 requests;
   6. LM: K4 (flash attention) and K5 (the gated scan) against their plain
-     torch versions on the card (f32 on the CPU tests' shapes, bf16 and f32
-     at the path's shapes), with times beside the plain version's, the
+     torch versions on the card (K4 in f32, bf16 and f16 on the CPU tests'
+     shapes, bf16 at the path's shapes), with times beside the plain
+     version's, the
      library call's and the bound; zamba2-1.2B at full width as a float32
      copy: prefill of 32 tokens + 4 decode steps, card against CPU, then
      served through `Server.register_decode` (4 slots, 8 tickets, 4 of
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -167,6 +172,25 @@ def expect_equal(torch, name: str, got, want) -> int:
     return int(err)
 
 
+def sass_counts(out_dir: Path) -> dict:
+    """HMMA / IMMA instructions in the built K4 and K2 libraries: their
+    counts and the distinct forms (opcode with its modifiers)."""
+    from repro_torch.kernels import _lib
+    tool = Path(_lib._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for src in ("flash_attention", "conv2d_im2col"):
+        text = subprocess.run([str(tool), "-sass",
+                               str(out_dir / f"lib{src}.so")],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[src] = {}
+        for op in ("HMMA", "IMMA"):
+            found = re.findall(rf"\s({op}(?:\.\w+)*)\s", text)
+            counts[src][op] = len(found)
+            counts[src][f"{op} forms"] = sorted(set(found))
+    return counts
+
+
 def mixed_graph():
     """A small graph whose one fused segment holds every K3 step kind:
     gemm, conv, standalone requant (the accumulators are also outputs),
@@ -287,6 +311,34 @@ def lm_phase(torch, np, rng, kernels, report, smi) -> dict:
             n += 1
     say(f"[K4] f32: {n} checks on the CPU tests' shapes within atol 3e-5, "
         f"rtol 1e-4 (max abs err {k4['max_abs_err']:.3g})")
+    # the 16-bit route (tensor cores) on the same cases. Tolerances: the
+    # output is rounded to the type, and a kernel value a hair off the
+    # plain version's can round one ulp apart (2^-6 bf16, 2^-9 f16 at
+    # |out| < 4; rtol covers larger outputs); the kernel also rounds P to
+    # the type before P V (relative 2^-9 bf16, 2^-12 f16), which the plain
+    # version's float32 P V does not
+    for dt, name, atol, rtol in ((torch.bfloat16, "bf16", 2e-2, 1e-2),
+                                 (torch.float16, "f16", 4e-3, 2e-3)):
+        n, worst = 0, 0.0
+        for (B, Hq, Hkv, Sq, Skv, D), causal, window in K4_TEST_CASES:
+            q = randn(B, Hq, Sq, D, dtype=dt)
+            k, v = (randn(B, Hkv, Skv, D, dtype=dt) for _ in range(2))
+            for scale in (None, 0.25):
+                err = close(f"K4 {name} {(B, Hq, Hkv, Sq, Skv, D)} causal="
+                            f"{causal} window={window} scale={scale}",
+                            flash_attention(q, k, v, causal=causal,
+                                            window=window, scale=scale),
+                            flash_attention_plain(q, k, v, causal, window,
+                                                  scale), atol, rtol)
+                worst = max(worst, err)
+                n += 1
+        k4["max_abs_err"] = max(k4["max_abs_err"], worst)
+        lm["checks"].append({"kernel": "flash_attention", "dtype": name,
+                             "cases": n, "max_abs_err": worst,
+                             "atol": atol, "rtol": rtol})
+        say(f"[K4] {name} (tensor cores): {n} checks on the CPU tests' "
+            f"shapes within atol {atol}, rtol {rtol} (max abs err "
+            f"{worst:.3g})")
     for B in (1, 4):
         # the path's shape: zamba2's shared attention over a 128-token
         # prompt, at batch 1 (LMBackend prefill) and 4 (ServeEngine)
@@ -633,6 +685,7 @@ def main() -> None:
     from repro_torch.core import megakernel as MK
     from repro_torch.hw import scaled_paper_machine
     from repro_torch.kernels import _lib
+    from repro_torch.kernels import conv2d_im2col as K2
     from repro_torch.kernels.conv2d_im2col import (conv2d_int8,
                                                    conv2d_int8_plain)
     from repro_torch.kernels.gemm_int8 import gemm_int8, gemm_int8_plain
@@ -660,6 +713,15 @@ def main() -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     for src in _lib.SOURCES:
         _lib.load(src)
+    sass = sass_counts(out_dir)
+    report["sass"] = sass
+    say(f"[build] tensor-core instructions in the SASS (cuobjdump -sass): "
+        + "; ".join(f"lib{k}.so HMMA x{v['HMMA']}, IMMA x{v['IMMA']} "
+                    f"({', '.join(v['HMMA forms'] + v['IMMA forms'])})"
+                    for k, v in sass.items()))
+    if sass["flash_attention"]["HMMA"] == 0 or \
+            sass["conv2d_im2col"]["IMMA"] == 0:
+        fail("K4's 16-bit kernels or K2 hold no tensor-core instruction")
 
     rng = np.random.default_rng(SEED)
 
@@ -672,6 +734,7 @@ def main() -> None:
                                .astype(np.float32)).to(dev)
 
     kernels = {k: {"max_abs_err": 0} for k in _lib.KERNELS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 3a. K1 --------------------------------------------------------------
     for (M, K, N, mode) in [(1, 2048, 1000, "int32"), (1, 2048, 1000, "rq"),
@@ -710,15 +773,28 @@ def main() -> None:
     # -- 3b. K2 --------------------------------------------------------------
     torch.backends.cudnn.allow_tf32 = False
 
-    def conv_case(tag, B, H, W, Cin, N, k, s, p, rq=True, timed=True):
+    def k2_grid(M, N, K):
+        """K2's grid for an (M, K) x (K, N) conv: (tiles, splits)."""
+        tiles = math.ceil(M / K2.TILE_M) * math.ceil(N / K2.TILE_N)
+        return tiles, K2.conv_splits(M, N, K, sms)
+
+    def conv_case(tag, B, H, W, Cin, N, k, s, p, rq="channel", timed=True):
         x, w = i8(B, H, W, Cin), i8(k * k * Cin, N)
-        m = mults(N) if rq else None
+        m = mults(N) if rq == "channel" else mults(1) if rq == "scalar" \
+            else None
         kw = dict(kh=k, kw=k, stride=s, padding=p)
         err = expect_equal(torch, f"K2 {tag}", conv2d_int8(x, w, m, **kw),
                            conv2d_int8_plain(x, w, m, **kw))
         kernels["conv2d_int8"]["max_abs_err"] = max(
             kernels["conv2d_int8"]["max_abs_err"], err)
+        oh = (H + 2 * p - k) // s + 1
+        ow = (W + 2 * p - k) // s + 1
+        tiles, splits = k2_grid(B * oh * ow, N, k * k * Cin)
+        shape = f"{tag} B={B} {H}x{W}x{Cin}->{N} k{k} s{s} p{p} ({rq})"
         if not timed:
+            say(f"[K2] {shape}: equal; grid {tiles} tiles x {splits} "
+                f"splits (K = {k * k * Cin}, "
+                f"{math.ceil(k * k * Cin / K2.CHUNK_K)} chunks)")
             return None
         ms = graph_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
         pms = graph_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
@@ -730,16 +806,15 @@ def main() -> None:
             memory_format=torch.channels_last)
         lib_ms = graph_ms(torch, lambda: torch.nn.functional.conv2d(
             xf, wf, stride=s, padding=p))
-        oh = (H + 2 * p - k) // s + 1
-        ow = (W + 2 * p - k) // s + 1
         macs = B * oh * ow * N * k * k * Cin
         b = Bound().add(x.numel() + w.numel() + B * oh * ow * N
                         * (1 if rq else 4), 2 * macs)
-        say(f"[K2] {tag} B={B} {H}x{W}x{Cin}->{N} k{k} s{s} p{p}: equal; "
+        say(f"[K2] {shape}: equal; grid {tiles}x{splits}; "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, cuDNN f32 "
             f"{lib_ms:.4f} ms, bound {b:.5f} ms")
         report["checks"].append({"kernel": "conv2d_int8", "tag": tag,
                                  "shape": [B, H, W, Cin, N, k, s, p],
+                                 "grid": [tiles, splits],
                                  "ms": ms, "plain_ms": pms,
                                  "library_ms": lib_ms, "bound_ms": b})
         return ms
@@ -748,8 +823,17 @@ def main() -> None:
         conv_case("stem", B, 224, 224, 3, 64, 7, 2, 3)
         conv_case("3x3", B, 56, 56, 64, 64, 3, 1, 1)
         conv_case("1x1s2", B, 56, 56, 256, 512, 1, 2, 0)
-    conv_case("ragged", 2, 13, 11, 5, 70, 3, 2, 1, rq=False, timed=False)
+    conv_case("ragged", 2, 13, 11, 5, 70, 3, 2, 1, rq=None, timed=False)
     conv_case("ragged-rq", 3, 9, 17, 12, 33, 5, 1, 2, timed=False)
+    # split-K edges: 18 K chunks over 17 splits (K = 1152 is no multiple
+    # of the split), int32 and scalar-requant outputs, C % 16 != 0 (the
+    # scalar patch loader) split 4 ways, and a batch that lowers the split
+    conv_case("split-ragged", 1, 8, 8, 128, 512, 3, 1, 1, timed=False)
+    conv_case("split-ragged-i32", 1, 8, 8, 128, 512, 3, 1, 1, rq=None,
+              timed=False)
+    conv_case("split-c24", 1, 9, 9, 24, 72, 3, 1, 1, rq="scalar",
+              timed=False)
+    conv_case("split-b3", 3, 7, 7, 512, 512, 3, 1, 1, timed=False)
 
     # -- 3c. K3 on every fused segment ---------------------------------------
     def fused_checks(tag, g, hw, B):
@@ -863,6 +947,7 @@ def main() -> None:
     consts = C.device_consts(prog, dev)
     sums = {"gemm_int8": [0.0, 0.0, 0.0], "conv2d_int8": [0.0, 0.0, 0.0]}
     bounds = {"gemm_int8": Bound(), "conv2d_int8": Bound()}
+    sum8 = 0.0          # K2 over the same shapes at batch 8
     for seg in segments:
         if seg.kind != "tiled":
             continue
@@ -886,9 +971,22 @@ def main() -> None:
         else:
             oh, ow = C.conv_out_hw(a)
             x = i8(1, a["H"], a["W"], a["C_in"])
+            x8 = i8(8, a["H"], a["W"], a["C_in"])
             kw = dict(kh=a["kh"], kw=a["kw"], stride=a["stride"],
                       padding=a["padding"])
+            K_ = a["kh"] * a["kw"] * a["C_in"]
+            for B_, xb in ((1, x), (8, x8)):
+                err = expect_equal(
+                    torch, f"K2 path {st.batch.name} batch {B_}",
+                    conv2d_int8(xb, w, m, **kw),
+                    conv2d_int8_plain(xb, w, m, **kw))
+                kernels["conv2d_int8"]["max_abs_err"] = max(
+                    kernels["conv2d_int8"]["max_abs_err"], err)
             ms = graph_ms(torch, lambda: conv2d_int8(x, w, m, **kw))
+            ms8 = graph_ms(torch, lambda: conv2d_int8(x8, w, m, **kw))
+            sum8 += ms8
+            grid1 = k2_grid(oh * ow, a["C_out"], K_)
+            grid8 = k2_grid(8 * oh * ow, a["C_out"], K_)
             pms = graph_ms(torch, lambda: conv2d_int8_plain(x, w, m, **kw))
             xf = x.permute(0, 3, 1, 2).float().contiguous(
                 memory_format=torch.channels_last)
@@ -900,13 +998,21 @@ def main() -> None:
             key = "conv2d_int8"
             b = bounds[key].add(x.numel() + w.numel() + oh * ow * a["C_out"]
                                 * (1 if m is not None else 4),
-                                2 * oh * ow * a["C_out"] * a["kh"] * a["kw"]
-                                * a["C_in"])
+                                2 * oh * ow * a["C_out"] * K_)
+            say(f"[K2 path] {st.batch.name}: M {oh * ow} K {K_} N "
+                f"{a['C_out']}, equal at batch 1 and 8; grid {grid1[0]}x"
+                f"{grid1[1]} (batch 8: {grid8[0]}x{grid8[1]}); kernel "
+                f"{ms:.4f} ms (batch 8: {ms8:.4f}), plain {pms:.4f}, cuDNN "
+                f"f32 {lib:.4f}, bound {b:.5f} ms")
         for j, v in enumerate((ms, pms, lib)):
             sums[key][j] += v
         report["checks"].append({"kernel": key, "tag": st.batch.name,
                                  "ms": ms, "plain_ms": pms,
                                  "library_ms": lib, "bound_ms": b})
+        if key == "conv2d_int8":
+            report["checks"][-1].update(batch8_ms=ms8, grid=grid1,
+                                        grid_batch8=grid8, M=oh * ow,
+                                        K=K_, N=a["C_out"])
     for key, (ms, pms, lib) in sums.items():
         bd = bounds[key]
         kernels[key].update(ms=ms, plain_ms=pms, library_ms=lib,
@@ -914,6 +1020,24 @@ def main() -> None:
         say(f"[path] {key} over the path's tiled shapes (batch 1, summed): "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms, library {lib:.4f} ms, "
             f"bound {bd.ms:.5f} ms ({bd.by})")
+    kernels["conv2d_int8"]["batch8_ms"] = sum8
+    say(f"[path] conv2d_int8 over the same shapes at batch 8 (summed): "
+        f"kernel {sum8:.4f} ms")
+    # K2's per-shape table: the path's convs grouped by (M, K, N), times
+    # averaged over the convs of a group
+    groups: dict = {}
+    for c in report["checks"]:
+        if c["kernel"] == "conv2d_int8" and "grid_batch8" in c:
+            groups.setdefault((c["M"], c["K"], c["N"]), []).append(c)
+    for (M_, K_, N_), cs in sorted(groups.items(),
+                                   key=lambda kv: (-kv[0][0], kv[0][1:])):
+        def mean(key):
+            return statistics.mean(c[key] for c in cs)
+        say(f"[K2 table] M {M_} K {K_} N {N_} x{len(cs)}: grid "
+            f"{cs[0]['grid'][0]}x{cs[0]['grid'][1]} (batch 8: "
+            f"{cs[0]['grid_batch8'][0]}x{cs[0]['grid_batch8'][1]}); kernel "
+            f"{mean('ms'):.4f} ms (batch 8: {mean('batch8_ms'):.4f}), cuDNN "
+            f"f32 {mean('library_ms'):.4f}, bound {mean('bound_ms'):.5f}")
 
     inputs = {B: rng.integers(-64, 64, size=(B, 224, 224, 3)).astype(np.int8)
               for B in (1, 8)}

@@ -114,7 +114,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     L, F = ctypes.c_longlong, ctypes.c_float
     table = {
         "gemm_int8_launch": [P, P, P, I, P, I, I, I, P],
-        "conv2d_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
+        "conv2d_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I,
+                               I, P, P, P],
         "megakernel_launch": [P, I, P, I, P, I, P, I, P],
         "megakernel_max_grid": [ctypes.POINTER(ctypes.c_int)],
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I,

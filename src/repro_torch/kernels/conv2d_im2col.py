@@ -4,11 +4,17 @@ fused requant epilogue as K1.
 The CUDA kernel is `csrc/conv2d_im2col.cu` (it replaces the JAX package's
 `kernels/conv2d_im2col.py::conv2d_int8_pallas`). It reads each patch
 straight from the input in device memory, with the padding done by masking;
-nothing is padded or materialised. `conv2d_int8_plain` is the plain torch
-version, which the wrapper takes for CPU tensors only.
+nothing is padded or materialised. It multiplies on the int8 tensor cores
+in 64 x 64 output tiles and splits K over `conv_splits(...)` blocks per
+tile, whose int32 partials meet in a cached workspace inside the one
+launch. `conv2d_int8_plain` is the plain torch version,
+which the wrapper takes for CPU tensors only.
 """
 
 from __future__ import annotations
+
+import math
+import threading
 
 import torch
 
@@ -16,7 +22,46 @@ from . import _lib
 from .gemm_int8 import dot_i32_exact, requant_epilogue
 from .ref import channel_mult, im2col_patches
 
-__all__ = ["conv2d_int8", "conv2d_int8_plain", "im2col_patches"]
+__all__ = ["conv2d_int8", "conv2d_int8_plain", "conv_splits",
+           "im2col_patches", "split_workspace"]
+
+# the kernel's output tile and K chunk (csrc/int8_mma.cuh: BM, BN, BK)
+TILE_M = TILE_N = 64
+CHUNK_K = 64
+H100_SMS = 132
+
+
+def conv_splits(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """How many ways K2 splits K: the least S for which tiles x S reaches
+    `sms` blocks, at most one per 64-deep K chunk (the kernel gives each
+    split a balanced, non-empty range of chunks). 1 when the tiles alone
+    fill the card."""
+    tiles = math.ceil(M / TILE_M) * math.ceil(N / TILE_N)
+    chunks = math.ceil(K / CHUNK_K)
+    return max(1, min(chunks, math.ceil(sms / tiles)))
+
+
+_WS_LOCK = threading.Lock()
+_WORKSPACES: dict[tuple[str, str, int], torch.Tensor] = {}
+
+
+def split_workspace(device: torch.device, kind: str, n: int) -> torch.Tensor:
+    """A cached int32 buffer of at least `n` zeros on `device`, one per
+    (device, kind, size) with the size rounded up to a power of two: the
+    "partials" (one slice per split of a tile, each written before the
+    tile's last block reads it) or the tiles' ticket "counters" (zeroed
+    once here; the kernel leaves them at zero). Kept for the process's
+    life, so a CUDA graph that captured a launch replays against live
+    memory, and reused by every launch on the device, which must therefore
+    run on one stream at a time."""
+    size = 1 << max(0, n - 1).bit_length()
+    key = (str(device), kind, size)
+    with _WS_LOCK:
+        buf = _WORKSPACES.get(key)
+        if buf is None:
+            buf = torch.zeros(size, dtype=torch.int32, device=device)
+            _WORKSPACES[key] = buf
+    return buf
 
 
 def conv2d_int8_plain(x: torch.Tensor, w: torch.Tensor,
@@ -75,12 +120,22 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
         requant_mult, N, x.device)
     out = torch.empty((*lead, oh, ow, N), device=x.device,
                       dtype=torch.int32 if mult is None else torch.int8)
+    M, K = B * oh * ow, kh * kw * C
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    S = conv_splits(M, N, K, sms) if M > 0 else 1
+    ws = cnt = None
+    if S > 1:
+        tiles = math.ceil(M / TILE_M) * math.ceil(N / TILE_N)
+        ws = split_workspace(x.device, "partials",
+                             tiles * S * TILE_M * TILE_N).data_ptr()
+        cnt = split_workspace(x.device, "counters", tiles).data_ptr()
     lib = _lib.load("conv2d_im2col")
     err = lib.conv2d_int8_launch(
         x.data_ptr(), w.data_ptr(),
         None if mult is None else mult.data_ptr(),
         1 if mult is None else mult.numel(), out.data_ptr(),
-        B, H, W, C, N, kh, kw, stride, padding, _lib.stream_ptr(x))
+        B, H, W, C, N, kh, kw, stride, padding, S, ws, cnt,
+        _lib.stream_ptr(x))
     _lib.check(lib, err, "conv2d_int8")
     _lib.count_launch("conv2d_int8")
     return out

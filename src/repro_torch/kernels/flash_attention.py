@@ -1,11 +1,14 @@
 """K4: blockwise GQA attention with an online softmax (flash attention).
 
 The CUDA kernel is `csrc/flash_attention.cu` (it replaces the JAX
-package's `kernels/flash_attention.py::flash_attention_pallas`);
-`flash_attention_plain` is its plain torch version, which the wrapper
-takes for CPU tensors only. Both keep the Pallas kernel's semantics: the
-causal mask with the decode offset Skv - Sq, the optional sliding window,
-the `scale` override, the -1e30 sentinel and `acc / max(l, 1e-30)`.
+package's `kernels/flash_attention.py::flash_attention_pallas`): f16 and
+bf16 inputs run on the tensor cores (16-bit products, f32 softmax state,
+P rounded to the input's type before P V), f32 inputs on the CUDA cores in
+f32 throughout. `flash_attention_plain` is its plain torch version, which
+the wrapper takes for CPU tensors only. Both keep the Pallas kernel's
+semantics: the causal mask with the decode offset Skv - Sq, the optional
+sliding window, the `scale` override, the -1e30 sentinel and
+`acc / max(l, 1e-30)`.
 """
 
 from __future__ import annotations
@@ -103,7 +106,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype (f32, f16 or bf16; math in f32). `scale` overrides 1/sqrt(D).
+    dtype (f32, f16 or bf16; softmax in f32, products in f32 for f32
+    inputs and in the input's type otherwise). `scale` overrides
+    1/sqrt(D).
 
     On a CUDA tensor this launches K4; on a CPU tensor it runs
     `flash_attention_plain`. A kernel launch counts one; the plain version

@@ -9,6 +9,7 @@ against the plain versions on a GPU and skips without one.
 """
 
 import importlib
+import math
 from unittest import mock
 
 import numpy as np
@@ -23,6 +24,8 @@ from repro_torch.core import quantize as tq
 from repro_torch.kernels import (conv2d_int8, conv2d_int8_plain, gemm_int8,
                                  gemm_int8_plain, launch_counts, ref,
                                  reset_launch_counts)
+from repro_torch.kernels.conv2d_im2col import (CHUNK_K, TILE_M, TILE_N,
+                                               conv_splits, split_workspace)
 
 
 def _t(a):
@@ -130,6 +133,71 @@ def test_conv_batched_and_im2col(rng):
             np.asarray(j_im2col(x[b], 3, 2, 2, 1)))
 
 
+@pytest.fixture(scope="module")
+def path_convs():
+    """(M at batch 1, K, N) of every conv that ResNet50-224 on
+    scaled_paper_machine(64) runs as its own K2 launch, from the port's
+    planner (the shapes chip_smoke.py times on the card)."""
+    import repro_torch
+    from repro_torch.core import cnn, init_params
+    from repro_torch.core import compiled as C
+    from repro_torch.core import megakernel as MK
+    from repro_torch.hw import scaled_paper_machine
+    g = cnn.resnet50()
+    dep = repro_torch.compile(g, scaled_paper_machine(64), backend="cuda",
+                              params=init_params(g, seed=0), device="cpu")
+    shapes = []
+    for seg in MK.plan_segments(dep.program):
+        st = seg.steps[0]
+        if seg.kind == "tiled" and st.mode != "gemm":
+            a = st.batch.attrs
+            oh, ow = C.conv_out_hw(a)
+            shapes.append((oh * ow, a["kh"] * a["kw"] * a["C_in"],
+                           a["C_out"]))
+    return shapes
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_conv_splits_fill_the_card_on_the_path(path_convs, batch):
+    """Every path conv gets tiles x splits >= 132 blocks, or one split per
+    K chunk; the split is the least that does, and the kernel's balanced
+    ranges [s*c//S, (s+1)*c//S) give every split at least one chunk."""
+    assert len(path_convs) == 50
+    for M1, K, N in path_convs:
+        M = batch * M1
+        S = conv_splits(M, N, K)
+        tiles = math.ceil(M / TILE_M) * math.ceil(N / TILE_N)
+        chunks = math.ceil(K / CHUNK_K)
+        assert 1 <= S <= chunks
+        assert tiles * S >= 132 or S == chunks, (M, K, N, S)
+        assert S == 1 or tiles * (S - 1) < 132, (M, K, N, S)
+        bounds = [s * chunks // S for s in range(S + 1)]
+        assert bounds[0] == 0 and bounds[-1] == chunks
+        assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+    # the deepest 3x3 conv: 8 tiles split 17 ways (72 chunks, 4-5 each)
+    assert conv_splits(49, 512, 4608) == 17
+    assert conv_splits(12544, 64, 147) == 1      # the stem fills the card
+    assert conv_splits(49, 512, 4608, sms=8) == 1
+
+
+def test_split_workspace_one_buffer_per_device_and_size():
+    """The split-K workspace and counters are allocated once per (device,
+    kind, size rounded up to a power of two) and then reused: a fresh
+    allocation per call would add a memset launch per conv."""
+    cpu = torch.device("cpu")
+    a = split_workspace(cpu, "partials", 1000)
+    assert a.dtype == torch.int32 and a.numel() == 1024
+    assert torch.count_nonzero(a) == 0
+    assert split_workspace(cpu, "partials", 1024) is a
+    assert split_workspace(cpu, "partials", 600) is a
+    b = split_workspace(cpu, "partials", 1025)
+    assert b is not a and b.numel() == 2048
+    c = split_workspace(cpu, "counters", 1000)
+    assert c is not a and c.numel() == 1024
+    assert torch.count_nonzero(c) == 0
+    assert split_workspace(cpu, "counters", 1000) is c
+
+
 def test_round_half_even_div_negative_sums():
     """Floor division semantics: the remainder is brought into [0, n) so
     negative exact halves round to even too (-5/2 -> -2, -7/2 -> -4)."""
@@ -173,7 +241,8 @@ def test_wrappers_count_calls_and_refuse_bad_operands(rng, monkeypatch):
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
     """On a GPU: K1 and K2 launch and agree with their plain versions bit
-    for bit (chip_smoke.py covers K3 and the full-size shapes)."""
+    for bit, K2 also split over K (17 ways, and with C % 16 != 0);
+    chip_smoke.py covers K3 and the full-size shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
     rng = np.random.default_rng(0)
@@ -191,7 +260,9 @@ def test_cuda_kernels_match_plain_versions():
             assert torch.equal(gemm_int8(x, w, mm), gemm_int8_plain(x, w, mm))
     for B, H, W, C, N, k, s, p in ((1, 32, 32, 3, 64, 7, 2, 3),
                                    (2, 14, 14, 64, 64, 3, 1, 1),
-                                   (3, 9, 17, 12, 33, 5, 1, 2)):
+                                   (3, 9, 17, 12, 33, 5, 1, 2),
+                                   (1, 8, 8, 128, 512, 3, 1, 1),
+                                   (1, 9, 9, 24, 72, 3, 1, 1)):
         x, w = i8(B, H, W, C), i8(k * k * C, N)
         kw = dict(kh=k, kw=k, stride=s, padding=p)
         assert torch.equal(conv2d_int8(x, w, **kw),

@@ -30,6 +30,13 @@ from repro_torch.kernels import (flash_attention, flash_attention_plain,
                                  ssm_scan_plain)
 
 ATTN_TOL = dict(atol=3e-5, rtol=1e-4)
+# K4 in a 16-bit type against float32 math on the same rounded inputs: the
+# output is rounded to the type (a kernel's value a hair off the plain
+# version's can round one ulp apart: 2^-6 bf16, 2^-9 f16 at |out| < 4,
+# rtol covers larger outputs) and the kernel rounds P to the type before
+# P V (relative 2^-9 bf16, 2^-12 f16)
+ATTN_TOL16 = {torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+              torch.float16: dict(atol=4e-3, rtol=2e-3)}
 SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
 FA = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -88,6 +95,25 @@ def test_flash_attention_plain_matches_pallas(shape, causal, window, blocks,
         np.testing.assert_allclose(
             ref.flash_attention(_t(q), _t(k), _t(v), causal, window,
                                 scale).numpy(), oracle, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,causal,window,blocks,scales",
+                         ATTN_CASES[:6])
+def test_flash_attention_16bit_matches_pallas(shape, causal, window, blocks,
+                                              scales, dtype):
+    """The 16-bit route (tensor cores on the card; here the plain version)
+    keeps the dtype and agrees with the Pallas kernel run in float32 on the
+    same rounded inputs, at the tolerance chip_smoke.py holds the kernel
+    to."""
+    q, k, v = (_t(a).to(dtype) for a in _qkv(sum(shape), *shape))
+    want = np.asarray(flash_attention_pallas(
+        *(t.float().numpy() for t in (q, k, v)), causal=causal,
+        window=window, bq=blocks[0], bk=blocks[1], interpret=True))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **ATTN_TOL16[dtype])
 
 
 def test_blockwise_attention_matches_oracle():
@@ -247,8 +273,8 @@ def test_ssm_block_decode_uses_dispatch(monkeypatch):
 @pytest.mark.cuda
 def test_cuda_lm_kernels_through_the_model_code():
     """On a GPU: `attend` launches K4 and `ssm_apply` with a state launches
-    K5; both agree with their plain versions (chip_smoke.py covers the
-    full-size shapes and bf16)."""
+    K5; both agree with their plain versions, K4 also in bf16 and f16
+    (chip_smoke.py covers the full-size shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
     from repro_torch.models.attention import attend
@@ -262,6 +288,11 @@ def test_cuda_lm_kernels_through_the_model_code():
     assert launch_counts()["flash_attention"] == 1
     torch.testing.assert_close(
         out, flash_attention_plain(q, k, v, True, 37), **ATTN_TOL)
+    for dt, tol in ATTN_TOL16.items():        # the tensor-core route
+        q16, k16, v16 = (t.to(dt) for t in (q, k, v))
+        torch.testing.assert_close(
+            flash_attention(q16, k16, v16, causal=True, window=37).float(),
+            flash_attention_plain(q16, k16, v16, True, 37).float(), **tol)
     cfg = ModelConfig(name="t", family="hybrid", num_layers=1, d_model=64,
                       num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=32,
                       ssm_state=8, dtype="float32")
