@@ -8,15 +8,20 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: the CUDA kernels from src/repro_torch/csrc (one nvcc each, in
      parallel, for sm_90a), and the tensor-core instructions in their SASS
-     (cuobjdump: HMMA in K4's 16-bit kernels, IMMA in K2);
-  3. kernels: K1 (int8 GEMM), K2 (implicit-im2col int8 conv on the int8
+     (cuobjdump: HMMA in K4's 16-bit kernels, IMMA in K1, K2 and K3, and
+     no dp4a left in K3);
+  3. kernels: K1 (int8 GEMM: split-K skinny route at M <= 16, the int8
+     tensor-core tile above), K2 (implicit-im2col int8 conv on the int8
      tensor cores, split over K inside its launch) and K3 (the
-     fused-segment megakernel) against their plain torch versions on the
-     card, bit for bit (torch.equal), with device times beside the plain
-     version's and, where one PyTorch call computes the same function,
-     that call's (every time of a kernel, plain version or library call is
-     `graph_ms`: calls replayed from a CUDA graph); K2 also at every tiled
-     conv of the main path, batch 1 and 8, with its grid (tiles x splits);
+     fused-segment megakernel, its conv and gemm steps on the same tile)
+     against their plain torch versions on the card, bit for bit
+     (torch.equal), with device times beside the plain version's and,
+     where one PyTorch call computes the same function, that call's (every
+     time of a kernel, plain version or library call is `graph_ms`: calls
+     replayed from a CUDA graph); K2 also at every tiled conv of the main
+     path, batch 1 and 8, with its grid (tiles x splits); K3 at the main
+     path's three fused segments at batch 1 and 8, each beside K2 and
+     cuDNN's float32 conv on the same conv;
   4. main path: int8 ResNet50-224 compiled for scaled_paper_machine(64) and
      run through `Deployment.run` on the megakernel path, the per-op kernel
      path and the plain "torch" backend at batch 1 and 8, each output bit
@@ -173,22 +178,73 @@ def expect_equal(torch, name: str, got, want) -> int:
 
 
 def sass_counts(out_dir: Path) -> dict:
-    """HMMA / IMMA instructions in the built K4 and K2 libraries: their
-    counts and the distinct forms (opcode with its modifiers)."""
+    """HMMA / IMMA / IDP (dp4a) instructions in the built K4, K2, K1 and K3
+    libraries: their counts and the distinct forms (opcode with its
+    modifiers)."""
     from repro_torch.kernels import _lib
     tool = Path(_lib._nvcc()).parent / "cuobjdump"
     counts = {}
-    for src in ("flash_attention", "conv2d_im2col"):
+    for src in ("flash_attention", "conv2d_im2col", "gemm_int8",
+                "megakernel"):
         text = subprocess.run([str(tool), "-sass",
                                str(out_dir / f"lib{src}.so")],
                               capture_output=True, text=True,
                               check=True).stdout
         counts[src] = {}
-        for op in ("HMMA", "IMMA"):
+        for op in ("HMMA", "IMMA", "IDP"):
             found = re.findall(rf"\s({op}(?:\.\w+)*)\s", text)
             counts[src][op] = len(found)
             counts[src][f"{op} forms"] = sorted(set(found))
     return counts
+
+
+def _kernel_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled kernel entry with its integer
+    and type template arguments: `ns::k<4, true>` -> "k<4,1>"."""
+    s = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name, i = mangled, 0
+    while i < len(s) and s[i].isdigit():
+        m = re.match(r"\d+", s[i:])
+        j = i + m.end()
+        name, i = s[j:j + int(m.group())], j + int(m.group())
+    if s[i:i + 1] == "I":
+        i += 1
+        args = []
+        while i < len(s) and s[i] != "E":
+            m = re.match(r"L[a-z]+(\d+)E|(\d+)", s[i:])
+            if m is None:
+                break
+            if m.group(1) is not None:
+                args.append(m.group(1))
+                i += m.end()
+            else:
+                j = i + m.end()
+                args.append(s[j:j + int(m.group(2))])
+                i = j + int(m.group(2))
+        name += "<" + ",".join(args) + ">"
+    return name
+
+
+def ptxas_summary(out_dir: Path) -> dict:
+    """{library: {kernel: [registers, spill store bytes]}} from the ptxas
+    reports that `_lib.build_all(verbose=True)` keeps beside each
+    library."""
+    out: dict = {}
+    for f in sorted(out_dir.glob("lib*.ptxas.txt")):
+        lib = out.setdefault(f.name[3:-len(".ptxas.txt")], {})
+        cur = None
+        for line in f.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                cur = lib.setdefault(_kernel_name(m.group(1)), [0, 0])
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes spill stores", line)
+                if m:
+                    cur[1] = int(m.group(1))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur[0] = int(m.group(1))
+    return out
 
 
 def mixed_graph():
@@ -688,7 +744,8 @@ def main() -> None:
     from repro_torch.kernels import conv2d_im2col as K2
     from repro_torch.kernels.conv2d_im2col import (conv2d_int8,
                                                    conv2d_int8_plain)
-    from repro_torch.kernels.gemm_int8 import gemm_int8, gemm_int8_plain
+    from repro_torch.kernels.gemm_int8 import (gemm_int8, gemm_int8_plain,
+                                               gemm_splits)
     import repro_torch
 
     dev = torch.device("cuda")
@@ -713,15 +770,26 @@ def main() -> None:
         f"in {time.perf_counter() - t0:.1f} s")
     for src in _lib.SOURCES:
         _lib.load(src)
+    ptxas = ptxas_summary(out_dir)
+    report["ptxas"] = ptxas
+    for lib_, ks in ptxas.items():
+        say(f"[build] ptxas lib{lib_}.so (registers, spill store bytes): "
+            + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in ks.items()))
     sass = sass_counts(out_dir)
     report["sass"] = sass
-    say(f"[build] tensor-core instructions in the SASS (cuobjdump -sass): "
-        + "; ".join(f"lib{k}.so HMMA x{v['HMMA']}, IMMA x{v['IMMA']} "
-                    f"({', '.join(v['HMMA forms'] + v['IMMA forms'])})"
-                    for k, v in sass.items()))
-    if sass["flash_attention"]["HMMA"] == 0 or \
-            sass["conv2d_im2col"]["IMMA"] == 0:
-        fail("K4's 16-bit kernels or K2 hold no tensor-core instruction")
+    ops = ("HMMA", "IMMA", "IDP")
+    say("[build] tensor-core and dp4a instructions in the SASS "
+        "(cuobjdump -sass): " + "; ".join(
+            f"lib{k}.so " + ", ".join(f"{op} x{v[op]}" for op in ops)
+            + f" ({', '.join(f for op in ops for f in v[op + ' forms'])})"
+            for k, v in sass.items()))
+    if sass["flash_attention"]["HMMA"] == 0 or any(
+            sass[k]["IMMA"] == 0 for k in ("conv2d_im2col", "gemm_int8",
+                                           "megakernel")):
+        fail("K4's 16-bit kernels, K2, K1 or K3 hold no tensor-core "
+             "instruction")
+    if sass["megakernel"]["IDP"]:
+        fail("K3 still multiplies with dp4a")
 
     rng = np.random.default_rng(SEED)
 
@@ -737,9 +805,13 @@ def main() -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # -- 3a. K1 --------------------------------------------------------------
+    # the classifier at batch 1 and 8 (skinny route) and 256 (tensor cores)
     for (M, K, N, mode) in [(1, 2048, 1000, "int32"), (1, 2048, 1000, "rq"),
                             (8, 2048, 1000, "int32"), (8, 2048, 1000, "rq"),
+                            (256, 2048, 1000, "int32"),
+                            (256, 2048, 1000, "rq"),
                             (37, 131, 77, "int32"), (37, 131, 77, "rq1"),
+                            (5, 131, 77, "rq1"), (16, 300, 1000, "int32"),
                             (1, 3, 5, "rq"), (130, 64, 200, "rq")]:
         x, w = i8(M, K), i8(K, N)
         m = (None if mode == "int32" else
@@ -764,11 +836,15 @@ def main() -> None:
         b = Bound().add(M * K + K * N
                         + M * N * (4 if mode == "int32" else 1),
                         2 * M * N * K)
-        say(f"[K1] {M}x{K}x{N} {mode}: equal; kernel {ms:.4f} ms, plain "
-            f"{pms:.4f} ms, library {lib_ms} ms, bound {b:.5f} ms")
+        route, splits = gemm_splits(M, N, K, sms)
+        say(f"[K1] {M}x{K}x{N} {mode}: equal; {route} route, {splits} "
+            f"splits; kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+            f"{lib_ms} ms, bound {b:.5f} ms")
         report["checks"].append({"kernel": "gemm_int8", "shape": [M, K, N],
-                                 "mode": mode, "ms": ms, "plain_ms": pms,
-                                 "library_ms": lib_ms, "bound_ms": b})
+                                 "mode": mode, "route": route,
+                                 "splits": splits, "ms": ms,
+                                 "plain_ms": pms, "library_ms": lib_ms,
+                                 "bound_ms": b})
 
     # -- 3b. K2 --------------------------------------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -836,9 +912,11 @@ def main() -> None:
     conv_case("split-b3", 3, 7, 7, 512, 512, 3, 1, 1, timed=False)
 
     # -- 3c. K3 on every fused segment ---------------------------------------
-    def fused_checks(tag, g, hw, B):
+    def fused_checks(tag, g, hw, B, against_k2=False):
         """K3 on every fused segment of `g`'s plan, each against its plain
-        version on the same inputs, timed; returns the per-program sums."""
+        version on the same inputs, timed; returns the per-program sums.
+        `against_k2`: a segment that is one conv is also run and timed on
+        K2 (same bits) and cuDNN's float32 conv on the same inputs."""
         params = init_params(g, seed=SEED)
         dep = repro_torch.compile(g, hw, backend="cuda", params=params,
                                   device="cuda")
@@ -850,7 +928,8 @@ def main() -> None:
                             .astype(np.int8)).to(dev)
         vals: list = [None] * len(prog.buffers)
         vals[prog.input_idx[g.inputs[0]]] = x
-        total = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "n": 0}
+        total = {"ms": 0.0, "plain_ms": 0.0, "bound": Bound(), "n": 0,
+                 "k2_ms": 0.0, "library_ms": 0.0}
         for si, seg in enumerate(segments):
             if seg.kind == "fused":
                 tab = MK.build_segment_table(prog, seg, consts, dev)
@@ -885,15 +964,42 @@ def main() -> None:
                 names = [s.batch.name for s in seg.steps]
                 shown = ", ".join(names[:4]) + (", ..." if len(names) > 4
                                                 else "")
-                say(f"[K3] {tag} segment {si} ({len(names)} steps: "
-                    f"{shown}): "
+                splits = MK.split_plan(tab, B, sms)[0]
+                k2 = lib = None
+                extra = ""
+                if against_k2 and [s.mode for s in seg.steps] == ["conv2d"]:
+                    st = seg.steps[0]
+                    a = st.batch.attrs
+                    w = consts.weights[st.batch.w_idx]
+                    m = None if st.mult is None else consts.mults[st.out_idx]
+                    xk = sv[st.batch.in_idx[0]]
+                    kw = dict(kh=a["kh"], kw=a["kw"], stride=a["stride"],
+                              padding=a["padding"])
+                    expect_equal(torch, f"K2 on K3's {tag} segment {si}",
+                                 conv2d_int8(xk, w, m, **kw).reshape(
+                                     vals[st.out_idx].shape),
+                                 vals[st.out_idx])
+                    k2 = graph_ms(torch, lambda: conv2d_int8(xk, w, m, **kw))
+                    xf = xk.permute(0, 3, 1, 2).float().contiguous(
+                        memory_format=torch.channels_last)
+                    wf = w.reshape(a["kh"], a["kw"], a["C_in"],
+                                   a["C_out"]).permute(3, 2, 0, 1).float() \
+                        .contiguous(memory_format=torch.channels_last)
+                    lib = graph_ms(torch, lambda: torch.nn.functional.conv2d(
+                        xf, wf, stride=a["stride"], padding=a["padding"]))
+                    total["k2_ms"] += k2
+                    total["library_ms"] += lib
+                    extra = (f", K2 on the same conv {k2:.4f} ms (K3/K2 "
+                             f"{ms / k2:.2f}), cuDNN f32 {lib:.4f} ms")
+                say(f"[K3] {tag} batch {B} segment {si} ({len(names)} "
+                    f"steps: {shown}; splits {sorted(splits.values())}): "
                     f"equal; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                    f"bound {b:.5f} ms")
+                    f"bound {b:.5f} ms{extra}")
                 report["checks"].append({
                     "kernel": "megakernel", "tag": f"{tag}/{si}",
-                    "steps": names,
-                    "ms": ms, "plain_ms": pms, "library_ms": None,
-                    "bound_ms": b})
+                    "batch": B, "steps": names, "splits": splits,
+                    "ms": ms, "plain_ms": pms, "library_ms": lib,
+                    "k2_ms": k2, "bound_ms": b})
                 total["ms"] += ms
                 total["plain_ms"] += pms
                 total["n"] += 1
@@ -936,11 +1042,20 @@ def main() -> None:
     say(f"[path] megakernel plan: {kinds}, {n_launch_plan} launches "
         f"(cap {dep.program.num_cores})")
 
-    # the three full-width fused segments, against their plain versions
-    k3 = fused_checks("resnet50-224", g, hw, 1)
+    # the three full-width fused segments, against their plain versions,
+    # at batch 1 and 8, each beside K2 and cuDNN on the same conv
+    k3 = fused_checks("resnet50-224", g, hw, 1, against_k2=True)
+    k3_8 = fused_checks("resnet50-224", g, hw, 8, against_k2=True)
+    for B_, t_ in ((1, k3), (8, k3_8)):
+        say(f"[K3] resnet50-224 batch {B_}, {t_['n']} fused segments "
+            f"summed: kernel {t_['ms']:.4f} ms, K2 on the same convs "
+            f"{t_['k2_ms']:.4f} ms, cuDNN f32 {t_['library_ms']:.4f} ms, "
+            f"plain {t_['plain_ms']:.4f} ms, bound {t_['bound'].ms:.5f} ms")
     kernels["megakernel"].update(ms=k3["ms"], plain_ms=k3["plain_ms"],
                                  bound_ms=k3["bound"].ms,
-                                 bound_by=k3["bound"].by, library_ms=None)
+                                 bound_by=k3["bound"].by,
+                                 library_ms=k3["library_ms"],
+                                 batch8_ms=k3_8["ms"])
 
     # K1/K2 at every tiled shape of the path (batch 1): per-program sums
     prog = dep.program

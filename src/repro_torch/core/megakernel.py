@@ -28,6 +28,8 @@ The plan is the modeled machine's: on the H100 a fused segment's footprint
 (1 MiB and up) does not fit a block's shared memory, so K3 tiles each step
 across the grid and keeps the segment's intermediates in a device
 workspace; the sanitizer's SPM rules still check the planned footprint.
+K3's conv and gemm steps run on the int8 tensor cores and split K by K2's
+rule at launch (`split_plan` mirrors the kernel's choice).
 
 Bit-exactness: every emission path uses the package's single requant
 definition and exact int8 contractions, so the megakernel is bit-identical
@@ -45,6 +47,8 @@ import torch
 from . import compiled as C
 from .graph import conv_out_hw
 from ..kernels import _lib
+from ..kernels.conv2d_im2col import (TILE_M, TILE_N, conv_splits,
+                                     split_workspace)
 from ..kernels.gemm_int8 import dot_i32_exact, requant_epilogue
 from ..kernels.ref import im2col_patches
 
@@ -278,8 +282,10 @@ _DT_CODE = {"int8": 0, "int32": 1}
 class SegmentTable:
     """K3's launch data for one (program, segment, device): the step table
     on the device, the segment's external inputs/outputs (their order is the
-    I/O slot order), the workspace bytes per sample, and the device tensors
-    whose pointers the table holds (kept alive here)."""
+    I/O slot order), the workspace bytes per sample, the device tensors
+    whose pointers the table holds (kept alive here), and the (row, rows
+    per sample, N, K) of each conv or gemm row, whose split the kernel
+    chooses at launch."""
 
     table: torch.Tensor
     n_rows: int
@@ -287,6 +293,7 @@ class SegmentTable:
     outs: list[int]
     ws_per_sample: int
     keep: list
+    mm: list[tuple[int, int, int, int]]
 
 
 def _round16(n: int) -> int:
@@ -341,7 +348,7 @@ def build_segment_table(prog: C.CompiledProgram, seg: Segment,
             r[F_A + k] = int(v)
         return r
 
-    rows, keep = [], []
+    rows, keep, mm = [], [], []
     for step in seg.steps:
         b = step.batch
         a = b.attrs
@@ -354,10 +361,13 @@ def build_segment_table(prog: C.CompiledProgram, seg: Segment,
             keep += [w] + ([] if mult is None else [mult])
             if step.mode == "gemm":
                 attrs = (a["M"], a["K"], a["N"])
+                mm.append((len(rows), a["M"], a["N"], a["K"]))
             else:
                 oh, ow = conv_out_hw(a)
                 attrs = (a["H"], a["W"], a["C_in"], a["C_out"], a["kh"],
                          a["kw"], a["stride"], a["padding"], oh, ow)
+                mm.append((len(rows), oh * ow, a["C_out"],
+                           a["kh"] * a["kw"] * a["C_in"]))
             rows.append(row(step.mode, step.out_idx, b.in_idx[0], w=w,
                             mult=mult, attrs=attrs))
         elif b.kind in ("requant", "relu", "add"):
@@ -393,18 +403,37 @@ def build_segment_table(prog: C.CompiledProgram, seg: Segment,
             raise ValueError(f"megakernel: no step for op kind {b.kind!r}")
     table = torch.tensor(rows, dtype=torch.int64).to(device)
     return SegmentTable(table=table, n_rows=len(rows), ins=ins, outs=outs,
-                        ws_per_sample=ws_total, keep=keep)
+                        ws_per_sample=ws_total, keep=keep, mm=mm)
 
 
-def _max_grid(device) -> int:
-    """Cooperative grid size: at most the co-resident blocks, and at most
-    two blocks per SM (more blocks only lengthen every barrier)."""
+def split_plan(tab: SegmentTable, B: int, sms: int
+               ) -> tuple[dict[int, int], int, int]:
+    """K3's split of K at batch `B`, as the kernel chooses it at launch
+    (csrc/megakernel.cu: run_mm): {row: S} for every conv and gemm row, by
+    K2's rule on M = B x the row's rows per sample, and the int32 partials
+    and tile counters of the one split region that every split row uses in
+    turn (a grid barrier follows each), i.e. the largest row's needs."""
+    splits: dict[int, int] = {}
+    n_ws = n_cnt = 0
+    for row, m, n, k in tab.mm:
+        S = splits[row] = conv_splits(B * m, n, k, sms)
+        if S > 1:
+            tiles = -(-B * m // TILE_M) * -(-n // TILE_N)
+            n_ws = max(n_ws, tiles * S * TILE_M * TILE_N)
+            n_cnt = max(n_cnt, tiles)
+    return splits, n_ws, n_cnt
+
+
+def _grid_and_sms(device) -> tuple[int, int]:
+    """Cooperative grid size (at most the co-resident blocks, and at most
+    two blocks per SM: more blocks only lengthen every barrier) and the SM
+    count that the split rule fills."""
     lib = _lib.load("megakernel")
     n = ctypes.c_int(0)
     _lib.check(lib, lib.megakernel_max_grid(ctypes.byref(n)),
                "megakernel_max_grid")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n.value, 2 * sms))
+    return max(1, min(n.value, 2 * sms)), sms
 
 
 def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
@@ -439,16 +468,23 @@ def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
         ptrs.append(o.data_ptr())
     ws = torch.empty(max(16, tab.ws_per_sample * B), dtype=torch.uint8,
                      device=device)
-    bar = torch.empty(2, dtype=torch.int32, device=device)
+    bar = split_workspace(device, "barrier", 2)    # K3 leaves it at zero
     io = (ctypes.c_int64 * len(ptrs))(*ptrs)
     lib = _lib.load("megakernel")
-    grid = prog._device_cache.get(("mk_grid", str(device)))
-    if grid is None:
-        grid = prog._device_cache[("mk_grid", str(device))] = \
-            _max_grid(device)
+    grid_sms = prog._device_cache.get(("mk_grid", str(device)))
+    if grid_sms is None:
+        grid_sms = prog._device_cache[("mk_grid", str(device))] = \
+            _grid_and_sms(device)
+    grid, sms = grid_sms
+    _, n_ws, n_cnt = split_plan(tab, B, sms)
+    part = cnt = None
+    if n_ws:
+        part = split_workspace(device, "partials", n_ws).data_ptr()
+        cnt = split_workspace(device, "counters", n_cnt).data_ptr()
     err = lib.megakernel_launch(tab.table.data_ptr(), tab.n_rows, io,
                                 len(ptrs), ws.data_ptr(), B, bar.data_ptr(),
-                                grid, _lib.stream_ptr(ws))
+                                grid, sms, part, n_ws, cnt, n_cnt,
+                                _lib.stream_ptr(ws))
     _lib.check(lib, err, "megakernel")
     _lib.count_launch("megakernel")
     for i, o in zip(tab.outs, outs):

@@ -34,19 +34,10 @@ conv2d_int8_kernel(i8mma::ConvGeom g, const float* __restrict__ mult,
                    int mult_len, void* out, int tiles_m, int chunks, int S,
                    int* ws, int* counters) {
   __shared__ i8mma::Smem sm;
-  const int tile = blockIdx.x;
-  const int split = blockIdx.y;
-  const int m0 = (tile % tiles_m) * i8mma::BM;
-  const int n0 = (tile / tiles_m) * i8mma::BN;
-  const int c0 = (int)((long long)split * chunks / S);
-  const int c1 = (int)((long long)(split + 1) * chunks / S);
-  float mv[4][2];
-  i8mma::load_mults(mult, mult_len, g.N, n0, mv);
-  int acc[2][4][4];
-  i8mma::conv_tile<VEC_A, VEC_B>(g, m0, n0, c0, c1, acc, sm);
-  if (S > 1 && !i8mma::reduce_splits(acc, ws, counters, tile, split, S))
-    return;
-  i8mma::store_tile(acc, out, g.M, g.N, m0, n0, mult != nullptr, mv);
+  i8mma::run_item<VEC_A, VEC_B, false>(
+      g, mult, mult_len, out,
+      mult != nullptr ? i8mma::OUT_REQUANT : i8mma::OUT_I32, tiles_m, chunks,
+      blockIdx.x, blockIdx.y, S, ws, counters, sm);
 }
 
 }  // namespace

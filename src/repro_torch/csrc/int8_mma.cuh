@@ -1,4 +1,6 @@
-// int8 tensor-core tile for the implicit-im2col convolution (K2).
+// int8 tensor-core tile for the implicit-im2col convolution (K2), the
+// GEMM at M > 16 (K1, as a 1x1 conv) and the megakernel's conv and gemm
+// steps (K3).
 //
 // One block of 128 threads (4 warps, 2 x 2) computes a 64 x 64 int32 output
 // tile with mma.sync.m16n8k32 (s8 x s8 -> s32): each warp owns 32 x 32, as
@@ -16,6 +18,11 @@
 //     one 32-bit word) and stored as B^T rows (n, k); bytewise where
 //     N % 8 != 0.
 //
+// COHERENT (K3): A was written earlier in the same launch by other blocks,
+// and L1 is not coherent across SMs, so A goes through L2 only
+// (cp.async.cg, __ldcg); K1 and K2 take the L1 path (cp.async.ca, __ldg).
+// Weights and multipliers are never written in a launch: always __ldg.
+//
 // Both operands are read from shared memory with ldmatrix (rows padded to
 // 80 bytes, so the 8 rows of one 8 x 16-byte matrix fall in distinct
 // banks). Register-staged loads (B, and A on the scalar path) for chunk
@@ -32,9 +39,11 @@
 // conv on an H100: the L2's atomic throughput, not the reads, is the
 // limit.)
 //
-// The epilogue writes int32, or int8 through rt::requant1 (int8_tile.cuh:
-// float32 multiply, round half to even, saturate), per column or scalar;
-// the multipliers are loaded before the K loop.
+// The epilogue writes int32, int8 through rt::requant1 (int8_tile.cuh:
+// float32 multiply, round half to even, saturate), per column or scalar,
+// or (K3's int8 accumulators without a multiplier) the int32 value cast to
+// int8; the multipliers are loaded before the K loop. `run_item` is one
+// (tile, split) work item: tile, reduction and store.
 #pragma once
 
 #include <cstdint>
@@ -63,11 +72,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16-byte async copy; src_bytes = 0 fills the 16 bytes with zeros
+// 16-byte async copy; src_bytes = 0 fills the 16 bytes with zeros.
+// COHERENT: through L2 only (.cg), else cached in L1 too (.ca).
+template <bool COHERENT>
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
+  if (COHERENT)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst),
+                 "l"(src), "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst),
+                 "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -135,6 +152,7 @@ __device__ __forceinline__ ARows a_rows(const ConvGeom& g, int m0) {
 // A by cp.async (C % 16 == 0, x 16-byte aligned): thread t copies 16 bytes
 // at k = k0 + 16 * (t % 4) for each of its two rows; the 16 channels lie
 // in one tap.
+template <bool COHERENT>
 __device__ __forceinline__ void load_a_async(const ConvGeom& g,
                                              const ARows& r, int k0,
                                              int8_t* as) {
@@ -156,13 +174,15 @@ __device__ __forceinline__ void load_a_async(const ConvGeom& g,
     const int8_t* src =
         ok ? r.xb[i] + ((size_t)iy * g.W + ix) * g.C + c : g.x;
     const int row = (t >> 2) + 32 * i;
-    cp_async16(smem_u32(as + row * LDS + 16 * (t & 3)), src, ok ? 16 : 0);
+    cp_async16<COHERENT>(smem_u32(as + row * LDS + 16 * (t & 3)), src,
+                         ok ? 16 : 0);
   }
 }
 
 // A bytewise (any C): the same 2 x 16 bytes, gathered into registers. The
 // tap (di, dj) and channel c of k are found once and then stepped along
 // the 16 values.
+template <bool COHERENT>
 __device__ __forceinline__ void load_a_regs(const ConvGeom& g,
                                             const ARows& r, int k0,
                                             uint4 (&v)[2]) {
@@ -182,8 +202,9 @@ __device__ __forceinline__ void load_a_regs(const ConvGeom& g,
       for (int i = 0; i < 2; ++i) {
         const int iy = r.iy0[i] + di, ix = r.ix0[i] + dj;
         if (r.valid[i] && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
-          const int val = __ldg((const signed char*)(
-              r.xb[i] + ((size_t)iy * g.W + ix) * g.C + c));
+          const signed char* p = (const signed char*)(
+              r.xb[i] + ((size_t)iy * g.W + ix) * g.C + c);
+          const int val = COHERENT ? __ldcg(p) : __ldg(p);
           wd[i][j >> 2] |= (uint32_t)(val & 0xff) << (8 * (j & 3));
         }
       }
@@ -210,6 +231,29 @@ __device__ __forceinline__ void store_a_regs(const uint4 (&v)[2],
                               16 * (t & 3)) = v[i];
 }
 
+// Four rows of 8 int8 (v[r] = row r, columns 0..7) -> 8 words, word j =
+// the 4 rows' values of column j (row r in byte r): the packing of
+// mma's .col B operand and of a __dp4a weight word.
+__device__ __forceinline__ void transpose_4x8(const uint2 (&v)[4],
+                                              uint32_t (&wd)[8]) {
+  const uint32_t lo01 = __byte_perm(v[0].x, v[1].x, 0x5140);
+  const uint32_t lo23 = __byte_perm(v[2].x, v[3].x, 0x5140);
+  const uint32_t hi01 = __byte_perm(v[0].x, v[1].x, 0x7362);
+  const uint32_t hi23 = __byte_perm(v[2].x, v[3].x, 0x7362);
+  wd[0] = __byte_perm(lo01, lo23, 0x5410);
+  wd[1] = __byte_perm(lo01, lo23, 0x7632);
+  wd[2] = __byte_perm(hi01, hi23, 0x5410);
+  wd[3] = __byte_perm(hi01, hi23, 0x7632);
+  const uint32_t lo01b = __byte_perm(v[0].y, v[1].y, 0x5140);
+  const uint32_t lo23b = __byte_perm(v[2].y, v[3].y, 0x5140);
+  const uint32_t hi01b = __byte_perm(v[0].y, v[1].y, 0x7362);
+  const uint32_t hi23b = __byte_perm(v[2].y, v[3].y, 0x7362);
+  wd[4] = __byte_perm(lo01b, lo23b, 0x5410);
+  wd[5] = __byte_perm(lo01b, lo23b, 0x7632);
+  wd[6] = __byte_perm(hi01b, hi23b, 0x5410);
+  wd[7] = __byte_perm(hi01b, hi23b, 0x7632);
+}
+
 // B: thread t reads rows k0 + 4*(t % 16) + 0..3 at columns n0 + 8*(t / 16)
 // + 0..7 and turns them into 8 words, word j = the 4 K values of column
 // 8*(t / 16) + j. VEC: N % 8 == 0 and w 8-byte aligned (8-byte loads).
@@ -227,22 +271,7 @@ __device__ __forceinline__ void load_b_regs(const ConvGeom& g, int k0,
                  ? __ldg(reinterpret_cast<const uint2*>(
                        g.w + (size_t)(k + r) * g.N + n))
                  : make_uint2(0u, 0u);
-    const uint32_t lo01 = __byte_perm(v[0].x, v[1].x, 0x5140);
-    const uint32_t lo23 = __byte_perm(v[2].x, v[3].x, 0x5140);
-    const uint32_t hi01 = __byte_perm(v[0].x, v[1].x, 0x7362);
-    const uint32_t hi23 = __byte_perm(v[2].x, v[3].x, 0x7362);
-    wd[0] = __byte_perm(lo01, lo23, 0x5410);
-    wd[1] = __byte_perm(lo01, lo23, 0x7632);
-    wd[2] = __byte_perm(hi01, hi23, 0x5410);
-    wd[3] = __byte_perm(hi01, hi23, 0x7632);
-    const uint32_t lo01b = __byte_perm(v[0].y, v[1].y, 0x5140);
-    const uint32_t lo23b = __byte_perm(v[2].y, v[3].y, 0x5140);
-    const uint32_t hi01b = __byte_perm(v[0].y, v[1].y, 0x7362);
-    const uint32_t hi23b = __byte_perm(v[2].y, v[3].y, 0x7362);
-    wd[4] = __byte_perm(lo01b, lo23b, 0x5410);
-    wd[5] = __byte_perm(lo01b, lo23b, 0x7632);
-    wd[6] = __byte_perm(hi01b, hi23b, 0x5410);
-    wd[7] = __byte_perm(hi01b, hi23b, 0x7632);
+    transpose_4x8(v, wd);
   } else {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -297,7 +326,7 @@ __device__ __forceinline__ void mma_stage(const int8_t* as, const int8_t* bs,
 }
 
 // acc = the tile's product over K chunks [c0, c1)
-template <bool VEC_A, bool VEC_B>
+template <bool VEC_A, bool VEC_B, bool COHERENT>
 __device__ __forceinline__ void conv_tile(const ConvGeom& g, int m0, int n0,
                                           int c0, int c1,
                                           int (&acc)[2][4][4], Smem& sm) {
@@ -316,9 +345,9 @@ __device__ __forceinline__ void conv_tile(const ConvGeom& g, int m0, int n0,
     if (s < n) {
       const int k0 = (c0 + s) * BK;
       if (VEC_A) {
-        load_a_async(g, rows, k0, sm.a[s]);
+        load_a_async<COHERENT>(g, rows, k0, sm.a[s]);
       } else {
-        load_a_regs(g, rows, k0, av);
+        load_a_regs<COHERENT>(g, rows, k0, av);
         store_a_regs(av, sm.a[s]);
       }
       load_b_regs<VEC_B>(g, k0, n0, bw);
@@ -334,9 +363,9 @@ __device__ __forceinline__ void conv_tile(const ConvGeom& g, int m0, int n0,
     if (nxt < n) {
       const int k0 = (c0 + nxt) * BK;
       if (VEC_A)
-        load_a_async(g, rows, k0, sm.a[st]);
+        load_a_async<COHERENT>(g, rows, k0, sm.a[st]);
       else
-        load_a_regs(g, rows, k0, av);
+        load_a_regs<COHERENT>(g, rows, k0, av);
       load_b_regs<VEC_B>(g, k0, n0, bw);
     }
     cp_async_commit();
@@ -416,11 +445,14 @@ __device__ __forceinline__ void load_mults(const float* mult, int mult_len,
     }
 }
 
-// Store the tile: int8 through rt::requant1 with this thread's column
-// multipliers `mv` when `requant`, else int32.
+// What the epilogue writes: int32, int8 through rt::requant1 with the
+// thread's column multipliers, or the int32 value cast to int8.
+enum OutMode { OUT_I32 = 0, OUT_REQUANT = 1, OUT_I8 = 2 };
+
+// Store the tile in `mode`.
 __device__ __forceinline__ void store_tile(const int (&acc)[2][4][4],
                                            void* out, int M, int N, int m0,
-                                           int n0, bool requant,
+                                           int n0, int mode,
                                            const float (&mv)[4][2]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -439,13 +471,50 @@ __device__ __forceinline__ void store_tile(const int (&acc)[2][4][4],
           if (n >= N) continue;
           const int v = acc[mi][ni][2 * h + e];
           const size_t o = (size_t)m * N + n;
-          if (requant)
+          if (mode == OUT_REQUANT)
             reinterpret_cast<int8_t*>(out)[o] =
                 (int8_t)rt::requant1(v, mv[ni][e]);
+          else if (mode == OUT_I8)
+            reinterpret_cast<int8_t*>(out)[o] = (int8_t)v;
           else
             reinterpret_cast<int*>(out)[o] = v;
         }
     }
+}
+
+// How many ways K is split: the least S for which tiles x S reaches `sms`
+// blocks, at most one per K chunk (kernels/conv2d_im2col.py::conv_splits,
+// which the CPU tests hold).
+__host__ __device__ __forceinline__ int split_count(long long tiles,
+                                                   int chunks, int sms) {
+  long long s = (sms + tiles - 1) / tiles;
+  if (s > chunks) s = chunks;
+  return s > 1 ? (int)s : 1;
+}
+
+// One work item of an (M, N) = A (M, K) x B (K, N) product: tile `tile`
+// (m-fastest over tiles_m rows of tiles), split `split` of S over the
+// `chunks` K chunks; the tile's last split block stores it in `mode`.
+// Every thread of the block calls it; it returns with the block's shared
+// memory still in use by slow warps, so a caller that runs another item
+// synchronises the block first.
+template <bool VEC_A, bool VEC_B, bool COHERENT>
+__device__ __forceinline__ void run_item(const ConvGeom& g,
+                                         const float* mult, int mult_len,
+                                         void* out, int mode, int tiles_m,
+                                         int chunks, int tile, int split,
+                                         int S, int* ws, int* counters,
+                                         Smem& sm) {
+  const int m0 = (tile % tiles_m) * BM;
+  const int n0 = (tile / tiles_m) * BN;
+  const int c0 = (int)((long long)split * chunks / S);
+  const int c1 = (int)((long long)(split + 1) * chunks / S);
+  float mv[4][2];
+  load_mults(mult, mult_len, g.N, n0, mv);
+  int acc[2][4][4];
+  conv_tile<VEC_A, VEC_B, COHERENT>(g, m0, n0, c0, c1, acc, sm);
+  if (S > 1 && !reduce_splits(acc, ws, counters, tile, split, S)) return;
+  store_tile(acc, out, g.M, g.N, m0, n0, mode, mv);
 }
 
 }  // namespace i8mma

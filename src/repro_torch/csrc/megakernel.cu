@@ -15,9 +15,11 @@
 // The grid is launched cooperatively (cudaLaunchCooperativeKernel, no
 // larger than the co-resident blocks), which guarantees that every block is
 // resident, so the software barrier below (an atomic arrival counter and a
-// generation word in device memory, reset by the wrapper's memset at each
-// launch) cannot deadlock. Buffers written inside the launch are read
-// through L2 (__ldcg): L1 is not coherent across SMs.
+// generation word in device memory) cannot deadlock. The last block to
+// arrive resets the counter, so every launch leaves it at zero and the
+// wrapper's buffer needs zeroing only once, when it is allocated. Buffers
+// written inside the launch are read through L2 (__ldcg, cp.async.cg): L1
+// is not coherent across SMs.
 //
 // A step table (int64 rows, built once per program and segment by the
 // wrapper, layout in core/megakernel.py) gives each step's kind, its buffer
@@ -28,11 +30,31 @@
 // segment's external inputs and outputs, passed by value at each launch.
 // Every buffer holds B samples back to back.
 //
-// What bounds it on an H100: the fused segments on the path are 3x3 convs
-// at 56x56 (K = 576): operations dominate, so the bound is the int8
-// tensor-core rate; the dp4a tile product leaves it far above that bound,
-// and every barrier costs a few microseconds. Measured in PERF.md.
-#include "int8_tile.cuh"
+// Conv and gemm steps run on the int8 tensor cores: int8_mma.cuh's 64 x 64
+// tile (mma.sync m16n8k32, the tile of K2), a gemm being the 1x1 conv
+// geometry (one pixel per row, C = K). Their work items are tiles x S
+// splits of K, walked grid-stride by the blocks; S is computed here at
+// launch from M = B x the step's rows per sample by K2's rule
+// (i8mma::split_count; core/megakernel.py::split_plan mirrors it for the
+// CPU tests and to size the workspace). The splits' partial tiles meet in
+// one workspace region shared by every split step of the launch, with one
+// ticket counter per tile that the tile's last block resets; a grid
+// barrier follows every conv and gemm step (the table sets it and the
+// kernel adds it where a row does not), so no two split steps use the
+// region at once. A block that is not a tile's last goes on to its next
+// item and to the barrier: it never returns early. VEC_A / VEC_B (16-byte
+// A copies, 8-byte weight loads) are chosen per step, four instantiations
+// of the tile in this one kernel.
+//
+// What bounds it on an H100: the path's fused segments (ResNet50-224 on
+// scaled_paper_machine(64): s1.b1.c2, s1.b2.c2, s1.b3.c2) each hold one
+// step, a 3x3 conv 28x28x128 -> 128 (M 784 at batch 1, K 1152, N 128), so
+// no barrier runs; 0.23 GOP each, 0.12 us at the int8 tensor-core rate,
+// while its bytes (0.35 MB) take 0.10 us. The first version multiplied
+// with __dp4a on the CUDA cores, 26 tiles on a grid of 264 blocks each
+// walking K = 1152 alone (69 us per segment); this one splits K 6 ways at
+// batch 1 (156 items) on the tensor cores, as K2 runs the same conv.
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -112,46 +134,85 @@ __device__ void grid_barrier(unsigned* bar) {
   __syncthreads();
 }
 
-__device__ void run_gemm(const long long* r, const IoPtrs& io, char* ws,
-                         int B, rt::TileSmem& sm) {
-  const int8_t* x = (const int8_t*)resolve(r[F_IN0], io, ws, B);
-  char* out = resolve(r[F_OUT], io, ws, B);
-  const int8_t* w = (const int8_t*)r[F_W];
-  const float* mult = (const float*)r[F_MULT];
-  const int mlen = (int)r[F_MULT_LEN];
-  const int M = (int)r[F_A] * B, K = (int)r[F_A + 1], N = (int)r[F_A + 2];
-  rt::GemmA<true> la{x, M, K, (K & 3) == 0 && rt::aligned4(x)};
-  const int tm = (M + rt::BM - 1) / rt::BM, tn = (N + rt::BN - 1) / rt::BN;
-  for (int tile = blockIdx.x; tile < tm * tn; tile += gridDim.x) {
-    const int m0 = (tile / tn) * rt::BM, n0 = (tile % tn) * rt::BN;
-    int acc[4][4];
-    rt::mma_tile<true>(la, w, K, N, m0, n0, acc, sm);
-    rt::store_tile(acc, out, M, N, m0, n0, mult, mlen,
-                   r[F_OUT_DT] == 0 ? 1 : 0);
-  }
-}
+// Split-K workspace of the launch: partial tiles and per-tile counters,
+// with their capacities (ints, tiles).
+struct Splits {
+  int* ws;
+  long long ws_cap;
+  int* counters;
+  int counters_cap;
+  int sms;
+};
 
-__device__ void run_conv(const long long* r, const IoPtrs& io, char* ws,
-                         int B, rt::TileSmem& sm) {
+// A conv or gemm step: every (tile, split) work item, grid-stride.
+__device__ void run_mm(const long long* r, const IoPtrs& io, char* ws,
+                       int B, const Splits& sp, i8mma::Smem& sm) {
   const int8_t* x = (const int8_t*)resolve(r[F_IN0], io, ws, B);
-  char* out = resolve(r[F_OUT], io, ws, B);
+  void* out = resolve(r[F_OUT], io, ws, B);
   const int8_t* w = (const int8_t*)r[F_W];
   const float* mult = (const float*)r[F_MULT];
   const int mlen = (int)r[F_MULT_LEN];
   const long long* a = r + F_A;
-  const int H = (int)a[0], W = (int)a[1], C = (int)a[2], N = (int)a[3];
-  const int kh = (int)a[4], kw = (int)a[5], s = (int)a[6], p = (int)a[7];
-  const int oh = (int)a[8], ow = (int)a[9];
-  const int M = B * oh * ow, K = kh * kw * C;
-  rt::ConvA<true> la{x, H, W, C, kw, s, p, oh, ow, M, K,
-                     (C & 3) == 0 && rt::aligned4(x)};
-  const int tm = (M + rt::BM - 1) / rt::BM, tn = (N + rt::BN - 1) / rt::BN;
-  for (int tile = blockIdx.x; tile < tm * tn; tile += gridDim.x) {
-    const int m0 = (tile / tn) * rt::BM, n0 = (tile % tn) * rt::BN;
-    int acc[4][4];
-    rt::mma_tile<true>(la, w, K, N, m0, n0, acc, sm);
-    rt::store_tile(acc, out, M, N, m0, n0, mult, mlen,
-                   r[F_OUT_DT] == 0 ? 1 : 0);
+  i8mma::ConvGeom g;
+  g.x = x;
+  g.w = w;
+  if (r[F_KIND] == GEMM) {  // one pixel per row: H = W = 1, C = K
+    g.M = (int)a[0] * B;
+    g.K = (int)a[1];
+    g.N = (int)a[2];
+    g.H = g.W = 1;
+    g.C = g.K;
+    g.kw = 1;
+    g.stride = 1;
+    g.pad = 0;
+    g.oh = g.ow = 1;
+  } else {
+    g.H = (int)a[0];
+    g.W = (int)a[1];
+    g.C = (int)a[2];
+    g.N = (int)a[3];
+    g.kw = (int)a[5];
+    g.stride = (int)a[6];
+    g.pad = (int)a[7];
+    g.oh = (int)a[8];
+    g.ow = (int)a[9];
+    g.M = B * g.oh * g.ow;
+    g.K = (int)a[4] * g.kw * g.C;
+  }
+  const int mode = mult != nullptr ? i8mma::OUT_REQUANT
+                   : r[F_OUT_DT] == 0 ? i8mma::OUT_I8
+                                      : i8mma::OUT_I32;
+  const int tiles_m = (g.M + i8mma::BM - 1) / i8mma::BM;
+  const int tiles = tiles_m * ((g.N + i8mma::BN - 1) / i8mma::BN);
+  const int chunks = (g.K + i8mma::BK - 1) / i8mma::BK;
+  int S = i8mma::split_count(tiles, chunks, sp.sms);
+  if (S > 1 && ((long long)tiles * S * (i8mma::BM * i8mma::BN) > sp.ws_cap ||
+                tiles > sp.counters_cap))
+    S = 1;  // the wrapper sized the region for every step: never taken
+  const bool va = g.C % 16 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vb = g.N % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 7) == 0;
+  for (int item = blockIdx.x; item < tiles * S; item += gridDim.x) {
+    __syncthreads();  // every warp is done with the last item's stages
+    const int tile = item % tiles, split = item / tiles;
+    if (va) {
+      if (vb)
+        i8mma::run_item<true, true, true>(g, mult, mlen, out, mode, tiles_m,
+                                          chunks, tile, split, S, sp.ws,
+                                          sp.counters, sm);
+      else
+        i8mma::run_item<true, false, true>(g, mult, mlen, out, mode, tiles_m,
+                                           chunks, tile, split, S, sp.ws,
+                                           sp.counters, sm);
+    } else {
+      if (vb)
+        i8mma::run_item<false, true, true>(g, mult, mlen, out, mode, tiles_m,
+                                           chunks, tile, split, S, sp.ws,
+                                           sp.counters, sm);
+      else
+        i8mma::run_item<false, false, true>(g, mult, mlen, out, mode,
+                                            tiles_m, chunks, tile, split, S,
+                                            sp.ws, sp.counters, sm);
+    }
   }
 }
 
@@ -238,17 +299,17 @@ __device__ void run_elementwise(const long long* r, const IoPtrs& io,
   }
 }
 
-__global__ void __launch_bounds__(rt::THREADS)
+__global__ void __launch_bounds__(i8mma::THREADS)
 megakernel_kernel(const long long* __restrict__ table, int n_steps, IoPtrs io,
-                  char* ws, int B, unsigned* bar) {
-  __shared__ rt::TileSmem sm;
+                  char* ws, int B, unsigned* bar, Splits sp) {
+  __shared__ i8mma::Smem sm;
   for (int si = 0; si < n_steps; ++si) {
     const long long* r = table + (size_t)si * ROW;
     const int kind = (int)r[F_KIND];
-    if (kind == GEMM) run_gemm(r, io, ws, B, sm);
-    else if (kind == CONV) run_conv(r, io, ws, B, sm);
+    const bool mm = kind == GEMM || kind == CONV;
+    if (mm) run_mm(r, io, ws, B, sp, sm);
     else run_elementwise(r, io, ws, B);
-    if (r[F_BARRIER] && si + 1 < n_steps) grid_barrier(bar);
+    if ((r[F_BARRIER] || mm) && si + 1 < n_steps) grid_barrier(bar);
   }
 }
 
@@ -262,7 +323,7 @@ int megakernel_max_grid(int* out) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, megakernel_kernel, rt::THREADS, 0);
+        &per_sm, megakernel_kernel, i8mma::THREADS, 0);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *out = per_sm * sms;
@@ -270,24 +331,32 @@ int megakernel_max_grid(int* out) {
 }
 
 // table: device int64 (n_steps, ROW); io: host int64[n_io] device pointers;
-// ws: device workspace; bar: device uint32[2]; grid <= megakernel_max_grid.
+// ws: device workspace; bar: device uint32[2] whose first word is zero
+// (left at zero on return); grid <= megakernel_max_grid;
+// sms: the SM count the split rule fills; partials / counters: the split-K
+// region (partials_cap int32, counters_cap int32 zeros, left at zero), or
+// null with capacity 0, which keeps every step unsplit.
 int megakernel_launch(const void* table, int n_steps, const void* io,
-                      int n_io, void* ws, int B, void* bar, int grid,
-                      void* stream) {
-  if (n_io > MAX_IO) return (int)cudaErrorInvalidValue;
+                      int n_io, void* ws, int B, void* bar, int grid, int sms,
+                      void* partials, long long partials_cap, void* counters,
+                      int counters_cap, void* stream) {
+  if (n_io > MAX_IO || sms < 1 || partials_cap < 0 || counters_cap < 0 ||
+      (partials_cap > 0 && partials == nullptr) ||
+      (counters_cap > 0 && counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   IoPtrs ptrs;
   for (int i = 0; i < MAX_IO; ++i)
     ptrs.p[i] = i < n_io ? reinterpret_cast<const long long*>(io)[i] : 0;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned), st);
-  if (e != cudaSuccess) return (int)e;
   const long long* tab = (const long long*)table;
   char* wsp = (char*)ws;
   unsigned* barp = (unsigned*)bar;
+  Splits sp{(int*)partials, partials_cap, (int*)counters, counters_cap, sms};
   void* args[] = {(void*)&tab, (void*)&n_steps, (void*)&ptrs, (void*)&wsp,
-                  (void*)&B, (void*)&barp};
-  e = cudaLaunchCooperativeKernel((const void*)megakernel_kernel, dim3(grid),
-                                  dim3(rt::THREADS), args, 0, st);
+                  (void*)&B,   (void*)&barp,    (void*)&sp};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)megakernel_kernel, dim3(grid), dim3(i8mma::THREADS), args,
+      0, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

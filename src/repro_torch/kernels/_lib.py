@@ -77,7 +77,9 @@ def _nvcc() -> str:
 
 def build_all(verbose: bool = False) -> Path:
     """Compile every source that has no library for the current hash, one
-    nvcc per source, all in parallel. Returns the build directory."""
+    nvcc per source, all in parallel. Returns the build directory.
+    `verbose`: ptxas reports every kernel's registers and spills, printed
+    and kept beside each library as `lib<name>.ptxas.txt`."""
     out_dir = BUILD_ROOT / sources_hash()
     todo = [s for s in SOURCES if not (out_dir / f"lib{s}.so").exists()]
     if not todo:
@@ -99,6 +101,7 @@ def build_all(verbose: bool = False) -> Path:
         log, _ = p.communicate()
         if verbose and log:
             print(f"[nvcc {s}]\n{log}", flush=True)
+            (out_dir / f"lib{s}.ptxas.txt").write_text(log)
         if p.returncode != 0:
             errors.append(f"nvcc {s}.cu failed ({p.returncode}):\n{log}")
             continue
@@ -113,10 +116,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     L, F = ctypes.c_longlong, ctypes.c_float
     table = {
-        "gemm_int8_launch": [P, P, P, I, P, I, I, I, P],
+        "gemm_int8_launch": [P, P, P, I, P, I, I, I, I, P, P, P],
         "conv2d_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I,
                                I, P, P, P],
-        "megakernel_launch": [P, I, P, I, P, I, P, I, P],
+        "megakernel_launch": [P, I, P, I, P, I, P, I, I, P, L, P, I, P],
         "megakernel_max_grid": [ctypes.POINTER(ctypes.c_int)],
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I,
                                    P],

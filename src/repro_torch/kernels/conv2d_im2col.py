@@ -19,13 +19,13 @@ import threading
 import torch
 
 from . import _lib
-from .gemm_int8 import dot_i32_exact, requant_epilogue
-from .ref import channel_mult, im2col_patches
+from .ref import channel_mult, im2col_patches, matmul_i32, requant
 
 __all__ = ["conv2d_int8", "conv2d_int8_plain", "conv_splits",
            "im2col_patches", "split_workspace"]
 
-# the kernel's output tile and K chunk (csrc/int8_mma.cuh: BM, BN, BK)
+# the int8 tensor-core tile's output tile and K chunk (csrc/int8_mma.cuh:
+# BM, BN, BK), shared with K1's M > 16 route and K3
 TILE_M = TILE_N = 64
 CHUNK_K = 64
 H100_SMS = 132
@@ -35,7 +35,8 @@ def conv_splits(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
     """How many ways K2 splits K: the least S for which tiles x S reaches
     `sms` blocks, at most one per 64-deep K chunk (the kernel gives each
     split a balanced, non-empty range of chunks). 1 when the tiles alone
-    fill the card."""
+    fill the card. K1's tensor-core route and K3's conv and gemm steps
+    split by the same rule (csrc/int8_mma.cuh: split_count)."""
     tiles = math.ceil(M / TILE_M) * math.ceil(N / TILE_N)
     chunks = math.ceil(K / CHUNK_K)
     return max(1, min(chunks, math.ceil(sms / tiles)))
@@ -49,11 +50,11 @@ def split_workspace(device: torch.device, kind: str, n: int) -> torch.Tensor:
     """A cached int32 buffer of at least `n` zeros on `device`, one per
     (device, kind, size) with the size rounded up to a power of two: the
     "partials" (one slice per split of a tile, each written before the
-    tile's last block reads it) or the tiles' ticket "counters" (zeroed
-    once here; the kernel leaves them at zero). Kept for the process's
-    life, so a CUDA graph that captured a launch replays against live
-    memory, and reused by every launch on the device, which must therefore
-    run on one stream at a time."""
+    tile's last block reads it), the tiles' ticket "counters" or K3's grid
+    "barrier" (zeroed once here; the kernels leave them at zero). Kept for
+    the process's life, so a CUDA graph that captured a launch replays
+    against live memory, and reused by every launch of K1, K2 and K3 on
+    the device, which must therefore run on one stream at a time."""
     size = 1 << max(0, n - 1).bit_length()
     key = (str(device), kind, size)
     with _WS_LOCK:
@@ -75,10 +76,9 @@ def conv2d_int8_plain(x: torch.Tensor, w: torch.Tensor,
     oh = (H + 2 * padding - kh) // stride + 1
     ow = (W + 2 * padding - kw) // stride + 1
     cols = im2col_patches(x, kh, kw, stride, padding)
-    acc = dot_i32_exact(cols.reshape(-1, kh * kw * C), w)
+    acc = matmul_i32(cols.reshape(-1, kh * kw * C), w)
     if requant_mult is not None:
-        acc = requant_epilogue(acc, channel_mult(requant_mult, N,
-                                                 acc.device))
+        acc = requant(acc, channel_mult(requant_mult, N, acc.device))
     return acc.reshape(*lead, oh, ow, N)
 
 

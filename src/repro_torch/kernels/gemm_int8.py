@@ -2,7 +2,11 @@
 
 The CUDA kernel is `csrc/gemm_int8.cu` (it replaces the JAX package's
 `kernels/gemm_int8.py::gemm_int8_pallas`); `gemm_int8_plain` is its plain
-torch version, which the wrapper takes for CPU tensors only.
+torch version, which the wrapper takes for CPU tensors only. It has two
+routes, which `gemm_splits` chooses with their split of K: at M <= 16 (the
+classifier at batch 1 and 8) a skinny split-K product on the CUDA cores
+that reads the weights once, at M > 16 the int8 tensor-core tile of K2.
+Either way the split partials meet inside the one launch.
 
 `dot_i32_exact` and `requant_epilogue` are the value-level building blocks
 the megakernel's plain version and the "torch" backend share with it.
@@ -10,13 +14,36 @@ the megakernel's plain version and the "torch" backend share with it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import _lib
+from .conv2d_im2col import (H100_SMS, TILE_M, TILE_N, conv_splits,
+                            split_workspace)
 from .ref import channel_mult, matmul_i32, requant
 
 dot_i32_exact = matmul_i32
 requant_epilogue = requant
+
+# the skinny route (csrc/gemm_int8.cu: SK_M, SK_BN, SK_CHUNK): its largest
+# M, its column tile and its K chunk (one block step of 32 lanes x 4 rows)
+SKINNY_M = 16
+SKINNY_N = 64
+SKINNY_CHUNK = 128
+
+
+def gemm_splits(M: int, N: int, K: int,
+                sms: int = H100_SMS) -> tuple[str, int]:
+    """K1's route and split count for an (M, K) x (K, N) product: "skinny"
+    (M <= 16, CUDA cores) or "mma" (int8 tensor cores), and the least S for
+    which the route's tiles x S reach `sms` blocks, at most one split per K
+    chunk of the route (at least 1)."""
+    if M <= SKINNY_M:
+        tiles = math.ceil(N / SKINNY_N)
+        chunks = math.ceil(K / SKINNY_CHUNK)
+        return "skinny", max(1, min(chunks, math.ceil(sms / tiles)))
+    return "mma", conv_splits(M, N, K, sms)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -61,14 +88,27 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor,
     w = w.contiguous()
     mult = None if requant_mult is None else channel_mult(
         requant_mult, N, x.device)
-    out = torch.empty((x2.shape[0], N), device=x.device,
+    Mf = x2.shape[0]
+    out = torch.empty((Mf, N), device=x.device,
                       dtype=torch.int32 if mult is None else torch.int8)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    route, S = gemm_splits(Mf, N, K, sms) if Mf > 0 else ("skinny", 1)
+    ws = cnt = None
+    if S > 1:
+        if route == "skinny":
+            tiles = math.ceil(N / SKINNY_N)
+            n_ws = tiles * S * SKINNY_M * SKINNY_N
+        else:
+            tiles = math.ceil(Mf / TILE_M) * math.ceil(N / TILE_N)
+            n_ws = tiles * S * TILE_M * TILE_N
+        ws = split_workspace(x.device, "partials", n_ws).data_ptr()
+        cnt = split_workspace(x.device, "counters", tiles).data_ptr()
     lib = _lib.load("gemm_int8")
     err = lib.gemm_int8_launch(
         x2.data_ptr(), w.data_ptr(),
         None if mult is None else mult.data_ptr(),
         1 if mult is None else mult.numel(), out.data_ptr(),
-        x2.shape[0], K, N, _lib.stream_ptr(x))
+        Mf, K, N, S, ws, cnt, _lib.stream_ptr(x))
     _lib.check(lib, err, "gemm_int8")
     _lib.count_launch("gemm_int8")
     return out.reshape(*lead, M, N)

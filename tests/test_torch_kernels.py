@@ -26,6 +26,8 @@ from repro_torch.kernels import (conv2d_int8, conv2d_int8_plain, gemm_int8,
                                  reset_launch_counts)
 from repro_torch.kernels.conv2d_im2col import (CHUNK_K, TILE_M, TILE_N,
                                                conv_splits, split_workspace)
+from repro_torch.kernels.gemm_int8 import (SKINNY_CHUNK, SKINNY_M, SKINNY_N,
+                                           gemm_splits)
 
 
 def _t(a):
@@ -55,6 +57,54 @@ def test_gemm_plain_matches_pallas(rng, M, K, N, mult):
     assert got.dtype == want.dtype and np.array_equal(got, want)
     assert np.array_equal(ref.gemm_int8(_t(x), _t(w), m).numpy(),
                           np.asarray(jref.gemm_int8(x, w, m)))
+
+
+@pytest.mark.parametrize("mult", [None, "channel"])
+@pytest.mark.parametrize("M", [1, 8, 256])
+def test_gemm_plain_matches_pallas_at_classifier_shapes(rng, M, mult):
+    """The classifier's product (K 2048, N 1000) at batch 1 and 8 (K1's
+    skinny route on the card) and at M 256 (its tensor-core route)."""
+    K, N = 2048, 1000
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    m = _mult(rng, mult, N)
+    want = np.asarray(gemm_int8_pallas(x, w, m, bm=min(M, 128), bn=256,
+                                       bk=1024, interpret=True))
+    got = gemm_int8(_t(x), _t(w), None if m is None else _t(m)).numpy()
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 16])
+def test_gemm_splits_skinny_route_fills_the_card(M):
+    """M <= 16 takes the skinny route; at the classifier's (K 2048, N
+    1000) its 64-column tiles x splits reach 132 blocks with the least
+    split, at most one per 128-row K chunk, and the kernel's balanced
+    ranges give every split at least one chunk; one SM-set of 8 gives 1."""
+    K, N = 2048, 1000
+    route, S = gemm_splits(M, N, K)
+    tiles = math.ceil(N / SKINNY_N)
+    chunks = math.ceil(K / SKINNY_CHUNK)
+    assert route == "skinny" and M <= SKINNY_M
+    assert (tiles, S) == (16, 9)
+    assert tiles * S >= 132 and tiles * (S - 1) < 132 and S <= chunks
+    bounds = [s * chunks // S for s in range(S + 1)]
+    assert all(b1 > b0 for b0, b1 in zip(bounds, bounds[1:]))
+    assert gemm_splits(M, N, K, sms=8) == ("skinny", 1)
+    assert gemm_splits(M, N, 100) == ("skinny", 1)     # one K chunk
+    assert gemm_splits(M, 8, 4096) == ("skinny", 32)   # one tile, 32 chunks
+
+
+@pytest.mark.parametrize("M", [17, 37, 256, 4096])
+def test_gemm_splits_tensor_core_route(M):
+    """M > 16 takes the int8 tensor-core tile, split as K2 splits a conv
+    of the same (M, K, N)."""
+    for K, N in ((2048, 1000), (131, 77), (64, 200)):
+        route, S = gemm_splits(M, N, K)
+        assert route == "mma" and S == conv_splits(M, N, K)
+        tiles = math.ceil(M / TILE_M) * math.ceil(N / TILE_N)
+        assert S <= max(1, math.ceil(K / CHUNK_K))
+        assert tiles * S >= 132 or S == max(1, math.ceil(K / CHUNK_K))
+    assert gemm_splits(256, 1000, 2048) == ("mma", 3)   # 64 tiles x 3
 
 
 def test_gemm_batched_folds_into_m(rng):
@@ -240,9 +290,12 @@ def test_wrappers_count_calls_and_refuse_bad_operands(rng, monkeypatch):
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions():
-    """On a GPU: K1 and K2 launch and agree with their plain versions bit
-    for bit, K2 also split over K (17 ways, and with C % 16 != 0);
-    chip_smoke.py covers K3 and the full-size shapes."""
+    """On a GPU: K1, K2 and K3 launch and agree with their plain versions
+    bit for bit: K1 on both routes (the classifier at M 1 and 8, skinny and
+    split 9 ways; M 256 on the tensor cores), K2 also split over K (17
+    ways, and with C % 16 != 0), K3 on a segment shaped as the path's
+    (one 3x3 conv 28x28x128 -> 128, split 6 ways at batch 1);
+    chip_smoke.py covers the full-size path."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels build with nvcc)")
     rng = np.random.default_rng(0)
@@ -252,7 +305,9 @@ def test_cuda_kernels_match_plain_versions():
         return torch.as_tensor(rng.integers(-128, 128, shape).astype(
             np.int8)).to(dev)
 
-    for M, K, N in ((1, 2048, 1000), (37, 131, 77), (130, 64, 200)):
+    for M, K, N in ((1, 2048, 1000), (8, 2048, 1000), (256, 2048, 1000),
+                    (5, 131, 77), (16, 300, 1000), (37, 131, 77),
+                    (130, 64, 200)):
         x, w = i8(M, K), i8(K, N)
         m = torch.as_tensor((rng.random(N) * 0.002).astype(np.float32),
                             device=dev)
@@ -267,3 +322,29 @@ def test_cuda_kernels_match_plain_versions():
         kw = dict(kh=k, kw=k, stride=s, padding=p)
         assert torch.equal(conv2d_int8(x, w, **kw),
                            conv2d_int8_plain(x, w, **kw))
+    import repro_torch
+    from repro_torch.core import compiled as C
+    from repro_torch.core import init_params
+    from repro_torch.core import megakernel as MK
+    from repro_torch.core.graph import Graph, conv2d, requant
+    from repro_torch.hw import scaled_paper_machine
+    g = Graph("path_segment")
+    g.add_tensor("input", (28, 28, 128), "int8", is_input=True)
+    g.mark_output(requant(g, "c.rq", conv2d(g, "c", "input", 128, 3)))
+    g.validate()
+    dep = repro_torch.compile(g, scaled_paper_machine(64), backend="cuda",
+                              params=init_params(g, seed=0), device="cuda")
+    prog = dep.program
+    consts = C.device_consts(prog, dev)
+    seg, = (s_ for s_ in MK.plan_segments(prog) if s_.kind == "fused")
+    tab = MK.build_segment_table(prog, seg, consts, dev)
+    for B in (1, 8):
+        vals = [None] * len(prog.buffers)
+        vals[prog.input_idx["input"]] = i8(B, 28, 28, 128)
+        kv = list(vals)
+        reset_launch_counts()
+        MK.run_fused(prog, seg, kv, consts, tab)
+        assert launch_counts()["megakernel"] == 1
+        MK.run_fused_plain(prog, seg, vals, consts)
+        for i in tab.outs:
+            assert torch.equal(kv[i], vals[i])

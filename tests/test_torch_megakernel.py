@@ -24,6 +24,7 @@ from repro.core import megakernel as RMK
 from repro_torch.core import compiled as TC
 from repro_torch.core import megakernel as TMK
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.conv2d_im2col import TILE_M, TILE_N, conv_splits
 
 PRESETS = {
     "small_cnn": (lambda m: m.cnn.small_cnn(), (32, 32, 3)),
@@ -182,19 +183,25 @@ def _mixed(core):
     return g
 
 
+def _lowered(build, cores, seed):
+    """(reference, port) programs of the graph `build(core)` on
+    scaled_paper_machine(cores)."""
+    progs = []
+    for core, hw in ((R, RH), (T, TH)):
+        g = build(core)
+        m = hw.scaled_paper_machine(cores)
+        rep, sched, subtasks, mapping = core.analyze(g, m, num_cores=cores)
+        params = core.init_params(g, seed=seed)
+        progs.append(core.lower_program(g, params, subtasks, mapping, sched,
+                                        hw=m))
+    return progs
+
+
 def test_mixed_step_kinds_bit_exact_and_tabled():
     import jax.numpy as jnp
     xb = np.random.default_rng(9).integers(-128, 128,
                                            (2, 20, 20, 8)).astype(np.int8)
-    progs = []
-    for core, hw in ((R, RH), (T, TH)):
-        g = _mixed(core)
-        m = hw.scaled_paper_machine(2)
-        rep, sched, subtasks, mapping = core.analyze(g, m, num_cores=2)
-        params = core.init_params(g, seed=4)
-        progs.append(core.lower_program(g, params, subtasks, mapping, sched,
-                                        hw=m))
-    rprog, tprog = progs
+    rprog, tprog = _lowered(_mixed, 2, 4)
     want = RMK.megakernel_batched(rprog, interpret=True)(
         {"input": jnp.asarray(xb)})
     got = TMK.run_megakernel(tprog, {"input": xb}, batched=True,
@@ -211,3 +218,105 @@ def test_mixed_step_kinds_bit_exact_and_tabled():
             assert tab.table.shape == (tab.n_rows, TMK.ROW)
             kinds |= set(tab.table[:, TMK.F_KIND].tolist())
     assert kinds == set(TMK.KIND.values())
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_mixed_split_steps_never_share_the_region_unbarriered(batch):
+    """K3's conv and gemm rows of the mixed segment split K at launch by
+    K2's rule, and all of them use one partial region in turn: every conv
+    and gemm row carries a grid barrier, so no two split rows meet without
+    one between them, and the region holds the largest split row's
+    partial tiles and counters."""
+    _, tprog = _lowered(_mixed, 2, 4)
+    consts = TC.device_consts(tprog, CPU)
+    n_split = 0
+    for seg in TMK.plan_segments(tprog):
+        if seg.kind != "fused":
+            continue
+        tab = TMK.build_segment_table(tprog, seg, consts, CPU)
+        table = tab.table
+        splits, n_ws, n_cnt = TMK.split_plan(tab, batch, 132)
+        assert sorted(splits) == [row for row, *_ in tab.mm]
+        for row, m, n, k in tab.mm:
+            assert table[row, TMK.F_KIND] in (TMK.KIND["gemm"],
+                                              TMK.KIND["conv2d"])
+            assert table[row, TMK.F_BARRIER] == 1
+            assert splits[row] == conv_splits(batch * m, n, k)
+        rows = [r for r, S in sorted(splits.items()) if S > 1]
+        for i, j in zip(rows, rows[1:]):
+            assert any(table[r, TMK.F_BARRIER] for r in range(i, j))
+        need = [(-(-batch * m // TILE_M) * -(-n // TILE_N), splits[row])
+                for row, m, n, k in tab.mm if splits[row] > 1]
+        assert n_ws == max([t * S * TILE_M * TILE_N for t, S in need],
+                           default=0)
+        assert n_cnt == max([t for t, _ in need], default=0)
+        n_split += len(rows)
+    assert n_split >= (2 if batch <= 2 else 1)
+
+
+@pytest.fixture(scope="module")
+def path_tables():
+    """The fused segments of ResNet50-224 on scaled_paper_machine(64) (the
+    port's main path) with their K3 step tables, built on the CPU."""
+    import repro_torch
+    g = T.cnn.resnet50()
+    dep = repro_torch.compile(g, TH.scaled_paper_machine(64), backend="cuda",
+                              params=T.init_params(g, seed=0), device="cpu")
+    prog = dep.program
+    consts = TC.device_consts(prog, CPU)
+    return [(seg, TMK.build_segment_table(prog, seg, consts, CPU))
+            for seg in TMK.plan_segments(prog) if seg.kind == "fused"]
+
+
+@pytest.mark.parametrize("batch,splits", [(1, 6), (8, 1)])
+def test_path_segments_split_as_k2_splits_the_conv(path_tables, batch,
+                                                   splits):
+    """Each of the path's three fused segments is one 3x3 conv row,
+    28x28x128 -> 128 (784 rows per sample, K 1152, N 128), with no barrier
+    run; the kernel splits it 6 ways at batch 1 (26 tiles x 6 = 156 work
+    items) and not at batch 8 (196 tiles), as K2 splits the same conv."""
+    assert [[s.batch.name for s in seg.steps] for seg, _ in path_tables] \
+        == [["s1.b1.c2"], ["s1.b2.c2"], ["s1.b3.c2"]]
+    for _, tab in path_tables:
+        assert tab.n_rows == 1 and tab.mm == [(0, 784, 128, 1152)]
+        assert tab.table[0, TMK.F_KIND] == TMK.KIND["conv2d"]
+        S, n_ws, n_cnt = TMK.split_plan(tab, batch, 132)
+        assert S == {0: splits} == {0: conv_splits(batch * 784, 128, 1152)}
+        tiles = -(-batch * 784 // TILE_M) * 2
+        assert tiles * splits >= 132
+        assert (n_ws, n_cnt) == ((tiles * splits * TILE_M * TILE_N, tiles)
+                                 if splits > 1 else (0, 0))
+
+
+def _path_segment(core):
+    """One 3x3 conv with C 128 -> 128 and its requant, the shape of the
+    path's fused segments on a small map."""
+    from importlib import import_module
+    gm = import_module(core.__name__ + ".graph")
+    g = gm.Graph("path_segment")
+    g.add_tensor("input", (6, 6, 128), "int8", is_input=True)
+    g.mark_output(gm.requant(g, "c.rq", gm.conv2d(g, "c", "input", 128, 3)))
+    g.validate()
+    return g
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_path_shaped_segment_plain_bit_exact_vs_jax(batch):
+    """K3's plain version on a fused segment of one 3x3 conv (C 128, the
+    requant fused) against the reference's megakernel in interpret mode."""
+    import jax.numpy as jnp
+    rprog, tprog = _lowered(_path_segment, 4, 3)
+    segs = TMK.plan_segments(tprog)
+    assert [(s.kind, [st.mode for st in s.steps]) for s in segs] == \
+        [("fused", ["conv2d"])]
+    assert segs[0].steps[0].mult is not None
+    xb = np.random.default_rng(11).integers(
+        -128, 128, (batch, 6, 6, 128)).astype(np.int8)
+    want = RMK.megakernel_batched(rprog, interpret=True)(
+        {"input": jnp.asarray(xb)})
+    got = TMK.run_megakernel(tprog, {"input": xb}, batched=True,
+                             device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == np.asarray(want[k]).dtype
+        assert np.array_equal(got[k], np.asarray(want[k]))
