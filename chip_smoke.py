@@ -28,6 +28,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      for bit against the numpy `reference_forward`, with latency and
      launches per program (wrapper counters, confirmed by torch.profiler);
   5. serving: a `Server` on the "cuda" backend answers 8 requests;
+     5b. resilience: ResNet50-224 ("detector", criticality 2) beside a small
+     CNN ("lane", criticality 0) under a seeded fault plan on the lane
+     (`enable_resilience`: retries, circuit breaker, straggler watchdog)
+     for 10 hyperperiods: every ticket terminal, every detector ticket
+     bit-exact, every recorded error an injected one, launches equal to
+     the programs run times their launches per program, and a second
+     Server from the same seed gives the same lane trace;
+     5c. mode changes: "highway" (detector + lane) switched mid-hyperperiod
+     to "parking" (detector at half the rate + a "park" CNN): the swap
+     happens at the boundary only, queued lane tickets end "dropped",
+     carried-over detector tickets run bit-exact on the staged deployment
+     (K1-K3 launched after the swap), and an unschedulable mode is refused
+     without touching the server;
   6. LM: K4 (flash attention) and K5 (the gated scan) against their plain
      torch versions on the card (K4 in f32, bf16 and f16 on the CPU tests'
      shapes, bf16 at the path's shapes), with times beside the plain
@@ -40,7 +53,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      zamba2-1.2B in bf16 through the same Server path, with prefill and
      decode-step times, launches per prefill (K4) and per decode step
      (K5), and the profiler's view of one decode step (its streams against
-     the oracle are printed beside the bf16 noise, not held to it).
+     the oracle are printed beside the bf16 noise, not held to it); then
+     `PredictableEngine` on the same bf16 params (a deadline check per
+     decode step, 6 K4 per prefill, 38 K5 per decode step), and the two
+     CLIs: `repro_torch.launch.serve --analyze-only` and, in a subprocess,
+     `python -m repro_torch.analysis` on the saved ResNet50-224 deployment.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Details go to
@@ -308,7 +325,7 @@ K4_TEST_CASES = [((1, 4, 4, 64, 64, 32), True, None),
                  ((2, 8, 2, 1, 100, 64), True, None)]
 
 
-def lm_phase(torch, np, rng, kernels, report, smi) -> dict:
+def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
     """Phase 6. Returns the kernel launch counts of the LM serving run."""
     import dataclasses
 
@@ -714,7 +731,392 @@ def lm_phase(torch, np, rng, kernels, report, smi) -> dict:
               per_decode_step=per_step, profile=profiles, card=smi,
               prefill_noise={str(k_): v_ for k_, v_ in noise.items()},
               stream_margins=margins)
+
+    # -- 6e. PredictableEngine on the same bf16 params; the two CLIs ---------
+    predictable_step(torch, np, rng, cfg, params, rtdep, lm)
     return lm_counts
+
+
+# the per-program launches of one ResNet50-224 program on the megakernel
+# path: K1 (the classifier), K2 (50 tiled convs), K3 (3 fused segments)
+DETECTOR_LAUNCHES = {"gemm_int8": 1, "conv2d_int8": 50, "megakernel": 3}
+INJECTED = ("InjectedFailure", "InjectedTimeout")
+
+
+def _cnn_launches(counts, checks, per_program) -> dict:
+    """Expected launch counts of a CNN serving run: each network's
+    executed programs (its monitor checks) times its launches per
+    program."""
+    return {k: sum(checks.get(n, 0) * per.get(k, 0)
+                   for n, per in per_program.items())
+            for k in counts}
+
+
+def resilience_phase(torch, np, hw, g, params, frames, refs, report) -> dict:
+    """Phase 5b. The Server's recovery layer on the card: ResNet50-224
+    ("detector", criticality 2) beside a small CNN ("lane", criticality 0)
+    under a seeded fault plan on the lane, with bounded retries, a circuit
+    breaker and a straggler watchdog. Returns what the modes phase
+    reuses."""
+    from collections import Counter
+
+    from repro_torch.core import cnn, init_params
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import (AdmissionError, BreakerPolicy, FaultPlan,
+                                   RetryPolicy, Server)
+
+    t_phase = time.perf_counter()
+    out_name = g.outputs[0]
+    lane_g = cnn.small_cnn()
+    lane_params = init_params(lane_g, seed=SEED + 1)
+    lane_frames = np.random.default_rng(SEED + 2).integers(
+        -64, 64, size=(8,) + lane_g.tensors["input"].shape).astype(np.int8)
+    hyperperiods = 10
+
+    def build():
+        srv = Server(hw, backend="cuda", device="cuda", queue_capacity=4,
+                     queue_policy="drop-oldest")
+        srv.register("detector", g, period_s=0.1, slots=4, params=params,
+                     criticality=2)
+        # the shortest lane period the analysis admits beside the detector
+        for period in (0.1, 0.2, 0.4):
+            try:
+                srv.register("lane", lane_g, period_s=period, slots=1,
+                             params=lane_params, criticality=0)
+                break
+            except AdmissionError:
+                continue
+        else:
+            fail("no lane period up to 0.4 s is admitted beside the "
+                 "detector")
+        srv.enable_resilience(
+            faults=FaultPlan(seed=7, fail_rate=0.35, timeout_rate=0.15,
+                             spike_rate=0.1, networks=("lane",)),
+            retry=RetryPolicy(max_retries=1),
+            breaker=BreakerPolicy(threshold=2, cooldown_jobs=2),
+            watchdog_margin=3.0)
+        return srv
+
+    def drive(srv):
+        det, lane = [], []
+        for k in range(hyperperiods):
+            det += [srv.submit("detector", frames[(4 * k + i) % len(frames)])
+                    for i in range(4)]
+            lane += [srv.submit("lane", lane_frames[(2 * k + i) % 8])
+                     for i in range(2)]
+            srv.run(hyperperiods=1)
+        while any(srv.queue_depths().values()):
+            srv.run(hyperperiods=1)
+        torch.cuda.synchronize()
+        return det, lane
+
+    srv = build()
+    rep = srv.report
+    lane_period = srv._nets["lane"].spec.period_s
+    say(f"[resil] admitted detector (ResNet50-224, 4 slots, period 100 ms, "
+        f"bound {rep.bound('detector') * 1e3:.3f} ms) and lane (small_cnn, "
+        f"1 slot, period {lane_period * 1e3:.0f} ms, bound "
+        f"{rep.bound('lane') * 1e3:.3f} ms) on {hw.name}: modeled DMA "
+        f"utilisation {rep.dma_utilization:.1%}, core utilisation "
+        f"{rep.compute_utilization:.1%}")
+    lane_runner = srv._nets["lane"].runner
+    _lib.reset_launch_counts()
+    lane_runner({"input": lane_frames[:1]})
+    torch.cuda.synchronize()
+    lane_per = _lib.launch_counts()
+    per_program = {"detector": DETECTOR_LAUNCHES, "lane": lane_per}
+
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    det, lane = drive(srv)
+    wall_s = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    checks = dict(srv.monitor.checks)
+
+    for t in det + lane:
+        if not t.terminal:
+            fail(f"[resil] ticket {t.tid} ({t.network}) ended {t.status}")
+    for i, t in enumerate(det):
+        if t.status != "done":
+            fail(f"[resil] detector ticket {t.tid} ended {t.status}: "
+                 f"{t.error}")
+        if not np.array_equal(t.result().output[out_name],
+                              refs[i % len(frames)][out_name]):
+            fail(f"[resil] detector ticket {t.tid} differs from "
+                 "reference_forward")
+    events = srv.monitor.events
+    det_events = events.get("detector", {})
+    det_breaker = srv._nets["detector"].breaker
+    if det_events.get("retry") or det_events.get("job_failed") or \
+            det_breaker.transitions:
+        fail(f"[resil] a fault reached the detector: events {det_events}, "
+             f"breaker transitions {det_breaker.transitions}")
+    errors = [t.error for t in det + lane if t.error is not None]
+    foreign = [e for e in errors if not e.startswith(INJECTED)]
+    if foreign:
+        fail(f"[resil] the recovery layer absorbed errors that were not "
+             f"injected (a device fault?): {foreign[:3]}")
+    inj = dict(srv.resilience.injector.injected)
+    failed_attempts = srv.metrics["retries"] + events.get(
+        "lane", {}).get("job_failed", 0)
+    if inj["fail"] + inj["timeout"] != failed_attempts:
+        fail(f"[resil] {failed_attempts} failed attempts (retries + failed "
+             f"jobs) but {inj['fail'] + inj['timeout']} injected raising "
+             "faults: an executor call failed on its own")
+    want = _cnn_launches(counts, checks, per_program)
+    if any(counts[k] != want[k] for k in CNN_KERNELS):
+        fail(f"[resil] launches {counts}, expected {want} for "
+             f"{checks.get('detector', 0)} detector programs x "
+             f"{DETECTOR_LAUNCHES} and {checks.get('lane', 0)} lane "
+             f"programs x {lane_per}")
+
+    again = build()
+    det2, lane2 = drive(again)
+    keys = ("retries", "degraded", "dropped")
+    one = ([t.status for t in lane], {k: srv.metrics[k] for k in keys}, inj)
+    two = ([t.status for t in lane2], {k: again.metrics[k] for k in keys},
+           dict(again.resilience.injector.injected))
+    if one != two or [t.status for t in det2] != ["done"] * len(det2):
+        fail(f"[resil] a second Server from the same seed differs: {one} "
+             f"vs {two}")
+    del again
+
+    verdicts = Counter(t.result().verdict.outcome for t in det)
+    met = sum(t.result().verdict.met for t in det)
+    stragglers = {n: e.get("straggler", 0) for n, e in events.items()
+                  if n in ("detector", "lane")}
+    lat = [t.result().latency_s * 1e3 for t in det]
+    say(f"[resil] {hyperperiods} hyperperiods + drain in {wall_s:.2f} s: "
+        f"{len(det)} detector tickets done, bit-exact vs reference_forward, "
+        f"{met} of {len(det)} deadlines met (outcomes {dict(verdicts)}; "
+        f"latency median {statistics.median(lat):.3f} ms, max "
+        f"{max(lat):.3f} ms); lane statuses "
+        f"{dict(Counter(t.status for t in lane))}")
+    say(f"[resil] injected {inj}; metrics retries {srv.metrics['retries']}, "
+        f"degraded {srv.metrics['degraded']}, dropped "
+        f"{srv.metrics['dropped']}; lane events {events.get('lane', {})}; "
+        f"stragglers {stragglers}; every recorded error injected "
+        f"({len(errors)}); a second Server from seed 7 gives the same lane "
+        f"statuses, counters and injections")
+    say(f"[resil] launches {counts} = {checks.get('detector', 0)} detector "
+        f"programs x {DETECTOR_LAUNCHES} + {checks.get('lane', 0)} lane "
+        f"programs x {lane_per}; phase {time.perf_counter() - t_phase:.1f} s")
+    report["resilience"] = {
+        "lane_period_s": lane_period, "wall_s": wall_s, "launches": counts,
+        "programs": checks, "injected": inj,
+        "metrics": dict(srv.metrics), "events": events,
+        "lane_statuses": one[0], "detector_met": met,
+        "detector_latency_ms": lat, "stragglers": stragglers,
+        "phase_s": time.perf_counter() - t_phase}
+    return {"lane_g": lane_g, "lane_params": lane_params,
+            "lane_frames": lane_frames, "lane_period": lane_period,
+            "lane_per": lane_per}
+
+
+def modes_phase(torch, np, hw, g, params, frames, refs, lane, report
+                ) -> None:
+    """Phase 5c. Atomic mode changes on the card: "highway" (detector +
+    lane) switched mid-hyperperiod to "parking" (detector at half the rate
+    + a "park" CNN), which applies only at the boundary; then an
+    unschedulable mode, refused atomically."""
+    from repro_torch.core import cnn, init_params
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import AdmissionError, Mode, ModeNetwork, Server
+
+    t_phase = time.perf_counter()
+    out_name = g.outputs[0]
+    park_g = cnn.small_cnn()
+    park_params = init_params(park_g, seed=SEED + 3)
+    highway = Mode("highway", (
+        ModeNetwork("detector", g, period_s=0.1, slots=4, params=params,
+                    criticality=2),
+        ModeNetwork("lane", lane["lane_g"], period_s=lane["lane_period"],
+                    params=lane["lane_params"]),
+    ))
+    parking = Mode("parking", (
+        ModeNetwork("detector", g, period_s=0.2, slots=4, params=params,
+                    criticality=2),
+        ModeNetwork("park", park_g, period_s=0.2, params=park_params,
+                    criticality=1),
+    ))
+    srv = Server(hw, backend="cuda", device="cuda")
+    t0 = time.perf_counter()
+    srv.switch_mode(highway)             # an idle server applies it now
+    say(f"[modes] highway prepared and applied in "
+        f"{time.perf_counter() - t0:.2f} s: "
+        f"{len(srv.compiled.jobs)} jobs per hyperperiod")
+
+    def check_det(t, i, what):
+        if t.status != "done" or not np.array_equal(
+                t.result().output[out_name], refs[i][out_name]):
+            fail(f"[modes] {what} detector ticket {t.tid}: {t.status}, or "
+                 "not bit-exact vs reference_forward")
+
+    lane_t = srv.submit("lane", lane["lane_frames"][0])
+    srv.step()                            # now mid-hyperperiod
+    if srv._cursor == 0:
+        fail("[modes] highway has one job per hyperperiod: no mid-point")
+    t0 = time.perf_counter()
+    staged_report = srv.switch_mode(parking)
+    prepare_s = time.perf_counter() - t0
+    staged = srv._staged_mode
+    reused = staged.nets["detector"].deployment is \
+        srv._nets["detector"].deployment
+    devices = {n: st.deployment.device for n, st in staged.nets.items()}
+    if set(devices.values()) != {"cuda"}:
+        fail(f"[modes] the staged mode was compiled for {devices}")
+    if srv.mode_name != "highway" or set(srv.networks) != {"detector",
+                                                           "lane"} \
+            or not srv.network_status("lane")["departing"]:
+        fail("[modes] switch_mode applied before the boundary")
+    say(f"[modes] parking staged mid-hyperperiod (cursor {srv._cursor}) in "
+        f"{prepare_s:.3f} s (prepare_mode: admission + compile for "
+        f"{devices}); detector deployment "
+        + ("reused from the program cache (same graph and params)"
+           if reused else "compiled anew")
+        + f"; lane departing; parking bound of the detector "
+        f"{staged_report.bound('detector') * 1e3:.3f} ms")
+    while srv._cursor != 0:               # drain under the old schedule
+        srv.step()
+        if srv.mode_name != "highway":
+            fail("[modes] the swap happened before the boundary")
+    if lane_t.status != "done":
+        fail(f"[modes] the lane ticket did not drain: {lane_t.status}")
+    lane_late = [srv.submit("lane", lane["lane_frames"][i]) for i in (1, 2)]
+    det_t = [srv.submit("detector", frames[i]) for i in range(4)]
+    base_checks = dict(srv.monitor.checks)
+    _lib.reset_launch_counts()
+    srv.step()                            # the boundary: swap, then run
+    if srv.mode_name != "parking" or set(srv.networks) != {"detector",
+                                                           "park"}:
+        fail(f"[modes] no swap at the boundary: mode {srv.mode_name}")
+    park_t = srv.submit("park", lane["lane_frames"][3])
+    srv.run(hyperperiods=2)
+    torch.cuda.synchronize()
+    counts = _lib.launch_counts()
+    checks = {n: srv.monitor.checks.get(n, 0) - base_checks.get(n, 0)
+              for n in ("detector", "park")}
+    for t in lane_late:
+        if t.status != "dropped":
+            fail(f"[modes] lane ticket {t.tid} queued at the swap ended "
+                 f"{t.status}")
+    for i, t in enumerate(det_t):
+        check_det(t, i, "carried-over")
+        r = t.result()
+        if not (r.release_s >= srv.clock_base_s > 0) or \
+                r.response_bound_s != srv.report.bound("detector"):
+            fail(f"[modes] detector ticket {t.tid}: release "
+                 f"{r.release_s}, clock base {srv.clock_base_s}, bound "
+                 f"{r.response_bound_s} (parking's "
+                 f"{srv.report.bound('detector')})")
+    if park_t.status != "done":
+        fail(f"[modes] park ticket ended {park_t.status}")
+    want = _cnn_launches(counts, checks, {"detector": DETECTOR_LAUNCHES,
+                                          "park": lane["lane_per"]})
+    if any(counts[k] == 0 or counts[k] != want[k] for k in CNN_KERNELS):
+        fail(f"[modes] launches after the swap {counts}, expected {want}")
+    say(f"[modes] swap at the boundary: mode {srv.mode_name}, 2 lane "
+        f"tickets dropped, 4 carried-over detector tickets bit-exact under "
+        f"parking (release >= clock base {srv.clock_base_s:.3f} s); "
+        f"launches after the swap {counts} = {checks['detector']} detector "
+        f"programs x {DETECTOR_LAUNCHES} + {checks['park']} park programs")
+
+    nets, mode, rep = list(srv.networks), srv.mode_name, srv.report
+    bound = rep.bound("detector")
+    bad = Mode("impossible", (
+        ModeNetwork("detector", g, period_s=bound / 2, slots=4,
+                    params=params, criticality=2),))
+    try:
+        srv.switch_mode(bad)
+        fail("[modes] a detector period of half its bound was admitted")
+    except AdmissionError:
+        pass
+    if (list(srv.networks), srv.mode_name) != (nets, mode) or \
+            srv.report is not rep or srv._staged_mode is not None:
+        fail("[modes] the refused mode changed the server")
+    t = srv.submit("detector", frames[4])
+    srv.run(hyperperiods=1)
+    torch.cuda.synchronize()
+    check_det(t, 4, "post-refusal")
+    say(f"[modes] a detector period of {bound / 2 * 1e3:.3f} ms (half its "
+        f"bound) raises AdmissionError; networks, mode and serving "
+        f"untouched (next ticket bit-exact); mode switches "
+        f"{srv.metrics['mode_switches']}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    report["modes"] = {"prepare_s": prepare_s, "detector_reused": reused,
+                       "launches_after_swap": counts, "programs": checks,
+                       "clock_base_s": srv.clock_base_s,
+                       "phase_s": time.perf_counter() - t_phase}
+
+
+def predictable_step(torch, np, rng, cfg, params, rtdep, lm) -> None:
+    """Phase 6e. `PredictableEngine` on the bf16 zamba2-1.2B params: every
+    decode step checked against the per-token WCET bound; then the two
+    CLIs, `repro_torch.launch.serve --analyze-only` and, in a subprocess,
+    `python -m repro_torch.analysis` on the saved ResNet50-224
+    deployment."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import PredictableEngine, Request
+
+    t_phase = time.perf_counter()
+    n_k4, n_k5 = cfg.num_layers // cfg.attn_every, cfg.num_layers
+    lens = rng.integers(16, 129, size=4)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    eng = PredictableEngine(cfg, params, batch_size=4, max_len=256)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.generate([Request(rid=i, prompt=p, max_new_tokens=8)
+                         for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    m = eng.metrics
+    if any(len(r.out) != 8 for r in done):
+        fail(f"[predictable] streams of {[len(r.out) for r in done]} tokens")
+    if eng.deadline_checks != m["decode_steps"]:
+        fail(f"[predictable] {eng.deadline_checks} deadline checks for "
+             f"{m['decode_steps']} decode steps")
+    if counts["flash_attention"] != n_k4 * m["prefills"] or \
+            counts["ssm_scan"] != n_k5 * m["decode_steps"]:
+        fail(f"[predictable] launches {counts} for {m['prefills']} prefills "
+             f"and {m['decode_steps']} decode steps (expected {n_k4} K4 per "
+             f"prefill, {n_k5} K5 per decode step)")
+    say(f"[predictable] PredictableEngine {cfg.name} {cfg.dtype}, 4 prompts "
+        f"({sorted(int(n) for n in lens)} tokens), 8 new tokens: "
+        f"{m['prefills']} prefill, {m['decode_steps']} decode steps, "
+        f"{eng.deadline_checks} deadline checks, {eng.deadline_misses} "
+        f"misses; per-token WCET {eng.report.per_token_wcet_s * 1e3:.3f} ms "
+        f"on the modeled {eng.report.wcet.hw_name} (speed ratio "
+        f"{eng.monitor.speed_ratio:.4g}); {wall_s:.2f} s; launches {counts}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_serve.main(["--arch", "zamba2-1.2b", "--analyze-only"])
+    for line in out.getvalue().splitlines():
+        say(f"[predictable] launch.serve --analyze-only: {line.strip()}")
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          str(rtdep)], env=env, capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"[predictable] python -m repro_torch.analysis exited "
+             f"{res.returncode}: {res.stdout[-500:]} {res.stderr[-500:]}")
+    say(f"[predictable] python -m repro_torch.analysis "
+        f"{rtdep.relative_to(ROOT)}: exit 0, "
+        f"{res.stdout.strip().splitlines()[-1]}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    lm["predictable"] = {
+        "prefills": m["prefills"], "decode_steps": m["decode_steps"],
+        "deadline_checks": eng.deadline_checks,
+        "deadline_misses": eng.deadline_misses,
+        "per_token_wcet_s": eng.report.per_token_wcet_s,
+        "speed_ratio": eng.monitor.speed_ratio, "wall_s": wall_s,
+        "launches": counts, "phase_s": time.perf_counter() - t_phase}
 
 
 def _leaves(tree):
@@ -1297,8 +1699,18 @@ def main() -> None:
         if serve_counts[k] == 0:
             fail(f"kernel {k} was not launched on the CNN serving path")
 
+    # -- 5b. resilience: faults, retries, breakers on the card ---------------
+    lane = resilience_phase(torch, np, hw, g, params, inputs[8], refs[8],
+                            report)
+
+    # -- 5c. atomic mode changes on the card ---------------------------------
+    modes_phase(torch, np, hw, g, params, inputs[8], refs[8], lane, report)
+    rtdep = ROOT / "build" / "resnet50_224.rtdep"
+    rtdep.parent.mkdir(exist_ok=True)
+    dep.save(str(rtdep))
+
     # -- 6. LM: zamba2-1.2B through Server.register_decode ---------------------
-    lm_counts = lm_phase(torch, np, rng, kernels, report, smi)
+    lm_counts = lm_phase(torch, np, rng, kernels, report, smi, rtdep)
 
     # -- result lines ---------------------------------------------------------
     where = {

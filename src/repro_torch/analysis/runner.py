@@ -9,6 +9,7 @@ a corrupt artifact can still be linted instead of refusing to open).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any
 
@@ -17,6 +18,11 @@ from .diagnostics import AnalysisReport, Diagnostic, parse_suppressions
 from .lifetime import analyze_program, analyze_subtasks
 from .schedule_rules import analyze_schedule, dma_exclusivity
 from .wcet_rules import analyze_taskset_report, analyze_wcet
+
+# the manifest a saved cluster directory carries (the JAX package's
+# `cluster/fleet.py::CLUSTER_MANIFEST`; `repro_torch.cluster` waits for its
+# port, ROADMAP.md, queue 1, item 13)
+CLUSTER_MANIFEST = "cluster.json"
 
 
 def deployment_diagnostics(dep: Any) -> list[Diagnostic]:
@@ -125,20 +131,24 @@ def analyze_taskset_deployment(
 
 def analyze_artifact(path: str, *, suppress: tuple = ()) -> AnalysisReport:
     """Lint one saved ``.rtdep`` artifact (verification off on load, so a
-    bad artifact is reported instead of refused)."""
+    bad artifact is reported instead of refused). The rules read the
+    schedule and program only and run nothing, so the artifact is loaded
+    for the host (``device="cpu"``): linting needs no GPU."""
     from ..compiler.deployment import Deployment
 
-    dep = Deployment.load(path, verify=False)
+    dep = Deployment.load(path, verify=False, device="cpu")
     return analyze_deployment(dep, suppress=suppress, subject=path)
 
 
 def analyze_bundle(
     dirpath: str, *, suppress: tuple = ()
 ) -> list[AnalysisReport]:
-    """Lint every member of a bundle directory."""
+    """Lint every member of a bundle directory (loaded for the host, as
+    `analyze_artifact` loads)."""
     from ..compiler.deployment import load_bundle
 
-    deployments, _extra, _objects = load_bundle(dirpath, verify=False)
+    deployments, _extra, _objects = load_bundle(dirpath, verify=False,
+                                                device="cpu")
     return [
         analyze_deployment(
             dep, suppress=suppress, subject=f"{dirpath}::{name}"
@@ -148,10 +158,10 @@ def analyze_bundle(
 
 
 def is_cluster_artifact(dirpath: str) -> bool:
-    """Cluster artifacts (`ClusterServer.save`) are not ported yet."""
-    raise NotImplementedError(
-        "cluster artifacts wait for the port of repro.cluster "
-        "(ROADMAP.md, queue 1, item 13)")
+    """True when `dirpath` is a `ClusterServer.save` layout (a cluster
+    manifest next to a replica bundle). Linting one raises in
+    `analyze_cluster` until the cluster is ported."""
+    return os.path.isfile(os.path.join(dirpath, CLUSTER_MANIFEST))
 
 
 def analyze_cluster(

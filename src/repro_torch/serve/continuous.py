@@ -37,10 +37,6 @@ convention the continuous loop gives the token streams of the
 batch-to-completion oracle `ServeEngine.serve` (the differential suite
 compares token-for-token under randomized arrival orders and slot
 capacities).
-
-Not ported yet: fault injection and the straggler watchdog. `fault_hook`
-and `watchdog` stay attributes left at None (ROADMAP.md, queue 1, item
-9.2).
 """
 
 from __future__ import annotations
@@ -506,12 +502,15 @@ class ContinuousEngine:
     `DeadlineVerdict` against its OWN deadline (requests entering
     mid-stream included) without touching the step counters.
 
-    Fault hooks: `fault_hook` (called at the very top of `step()`, before
-    any state mutation; "spike" inflates the measured decode latency by
-    `spike_factor`) and `watchdog` (observes every decode step's latency)
-    are the injection points of the JAX package's chaos runs. Their
-    injectors are not ported yet, so both stay None (ROADMAP.md, queue 1,
-    item 9.2).
+    Fault hooks (for chaos runs outside a `Server`, whose resilience
+    layer injects at the job level instead): `fault_hook` is called at
+    the very top of `step()` — BEFORE any state mutation, so a raising
+    hook (`faults.FaultInjector.before_call`) leaves the loop resumable
+    and a clean retry is just calling `step()` again. A hook returning
+    "spike" inflates the measured decode latency by `spike_factor`
+    before the monitor check. A `StragglerWatchdog` on `watchdog`
+    observes every decode step's latency and counts flagged steps as
+    "straggler" events on the monitor.
     """
 
     def __init__(self, backend: DecodeBackend, *, max_tokens: int,
@@ -520,7 +519,10 @@ class ContinuousEngine:
                  step_bound_s: float | None = None,
                  default_deadline_s: float | None = None,
                  network: str = "decode",
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 fault_hook: Callable[[], str | None] | None = None,
+                 spike_factor: float = 1.0,
+                 watchdog: object = None):
         if prefill_per_step < 1:
             raise ValueError("prefill_per_step must be >= 1")
         self.backend = backend
@@ -533,9 +535,9 @@ class ContinuousEngine:
         self.default_deadline_s = default_deadline_s
         self.network = network
         self.clock = clock
-        self.fault_hook: Callable[[], str | None] | None = None
-        self.spike_factor = 1.0
-        self.watchdog = None
+        self.fault_hook = fault_hook
+        self.spike_factor = spike_factor
+        self.watchdog = watchdog
         self.pending: deque[ContinuousRequest] = deque()
         self.active: dict[int, ContinuousRequest] = {}
         self.completed: list[ContinuousRequest] = []

@@ -174,7 +174,8 @@ class ServeEngine:
 
     def _record_decode_step(self, dt_s: float) -> None:
         """Per-decode-step timing hook (each step individually, measured at
-        its sync point); the base engine keeps no deadline state."""
+        its sync point). `PredictableEngine` overrides this to feed the
+        `DeadlineMonitor`; the base engine keeps no deadline state."""
 
     def serve(self, requests: list[Request],
               prompt_len: int | None = None) -> list[Request]:

@@ -31,9 +31,6 @@ The pieces, mirroring the paper's deployment story:
   * **deadline telemetry** — one shared `DeadlineMonitor` calibrates the
     machine-speed ratio and accounts per-network checks/misses/histograms;
     every `Ticket` carries its own `DeadlineVerdict`.
-  * **mixed-criticality shedding** — with an `OverloadPolicy`, the lowest-
-    criticality network is shed at a hyperperiod boundary under overload
-    and restored hysteretically.
   * **bundles** — `save(dir)`/`Server.load(dir)` compose the per-network
     `Deployment` artifacts plus the taskset metadata into one multi-network
     bundle.
@@ -42,9 +39,28 @@ The pieces, mirroring the paper's deployment story:
     slot-batched decode step per period and serves it through a
     `ContinuousEngine` (requests enter and leave the batch mid-stream).
 
-Not ported yet (each raises `NotImplementedError` naming its ROADMAP item):
-fault injection and recovery (`enable_resilience`) and mode changes
-(`switch_mode`).
+The resilience layer on top keeps those guarantees honest when the world
+misbehaves:
+
+  * **mixed-criticality shedding** — networks carry a criticality level;
+    under overload (flooded queues or a rising windowed miss rate) the
+    server sheds the lowest-criticality network at a hyperperiod boundary
+    — its queue pauses and its requests resolve with a degraded
+    `DeadlineVerdict` instead of a blanket `BackpressureError` — and
+    re-runs the WCET analysis on the remaining set so the surviving
+    verdicts stay sound; shed networks restore hysteretically when load
+    recedes (`OverloadPolicy`);
+  * **atomic mode changes** — `switch_mode(mode)` admission-checks an
+    entire incoming taskset with atomic rollback, compiling it for the
+    server's own device, then swaps it in ONLY at a hyperperiod boundary
+    while in-flight tickets drain under the old schedule
+    (`repro_torch.serve.modes`);
+  * **fault injection + recovery** — `enable_resilience` arms a seeded
+    `FaultPlan`, bounded retry-with-backoff per job, a per-network
+    `CircuitBreaker` (trip -> degraded mode -> half-open probe), and a
+    `StragglerWatchdog` per network, all counted in `DeadlineMonitor`
+    telemetry (`repro_torch.serve.faults`, sharing `train/fault.py`
+    machinery). A retry re-runs the same executor on the same device.
 
 Every submitted ticket reaches a terminal state — "done", "degraded",
 "dropped", or "failed" — so `Ticket.result()` can never hang on a request
@@ -71,10 +87,6 @@ from ..core.lmgraph import lm_decode_graph
 from ..hw import HardwareModel
 from ..models.config import ModelConfig
 from .monitor import DeadlineMonitor, DeadlineVerdict
-
-_RESILIENCE_ITEM = ("serve faults, modes and resilience wait for their port "
-                    "(ROADMAP.md, queue 1, item 9)")
-
 
 class ServeError(RuntimeError):
     """Invalid serving-runtime usage (unknown network, pending ticket, ...)."""
@@ -254,6 +266,19 @@ class OverloadPolicy:
 # -- the server ---------------------------------------------------------------
 
 @dataclasses.dataclass
+class Resilience:
+    """The armed recovery configuration (`Server.enable_resilience`)."""
+
+    injector: object = None              # faults.FaultInjector (None: no chaos)
+    retry: object = None                 # faults.RetryPolicy
+    breaker_policy: object = None        # faults.BreakerPolicy
+    watchdog_margin: float | None = None  # StragglerWatchdog margin (None: off)
+
+
+_GIVE_UP = object()    # sentinel: the retry budget is spent, tickets degraded
+
+
+@dataclasses.dataclass
 class _Network:
     """Per-network serving state (internal)."""
 
@@ -270,6 +295,9 @@ class _Network:
     sustained: object = None             # SustainedServeVerdict (if declared)
     inflight: dict = dataclasses.field(default_factory=dict)  # rid -> Ticket
     shed: bool = False                   # paused by overload control
+    breaker: object = None               # faults.CircuitBreaker (resilience)
+    watchdog: object = None              # StragglerWatchdog (resilience)
+    jobs_done: int = 0                   # executed jobs (watchdog step index)
 
 
 def _as_graph(net, name: str, *, batch: int, cache_len: int,
@@ -332,6 +360,7 @@ class Server:
         self.queue_capacity = queue_capacity
         self.queue_policy = queue_policy
         self.overload = overload
+        self.resilience: Resilience | None = None
         self.monitor = DeadlineMonitor(speed_ratio=speed_ratio,
                                        slack_factor=slack_factor)
         self.metrics = {"jobs": 0, "idle_jobs": 0, "tickets": 0,
@@ -343,7 +372,8 @@ class Server:
         self._cursor = 0                     # next job in the hyperperiod
         self.hyperperiods_completed = 0
         self.clock_base_s = 0.0              # abs time across schedule changes
-        self.mode_name: str | None = None    # mode changes are not ported
+        self.mode_name: str | None = None    # current Mode (switch_mode)
+        self._staged_mode = None             # modes.StagedMode awaiting boundary
         self._calm = 0                       # consecutive calm boundaries
         self._tids = itertools.count()
 
@@ -401,6 +431,8 @@ class Server:
                              criticality=criticality),
             slots=slots, step_fn=step_fn, autorun=autorun, params=params,
             queue=RequestQueue(name, self.queue_capacity, self.queue_policy))
+        if self.resilience is not None:
+            self._arm_networks()
         self._invalidate()
 
     def _invalidate(self) -> None:
@@ -540,6 +572,8 @@ class Server:
                 prefill_per_step=prefill_per_step, monitor=self.monitor,
                 step_bound_s=bound, default_deadline_s=st.spec.deadline,
                 network=name)
+            if self.resilience is not None:
+                self._arm_networks()
         except Exception:
             (self._nets, self.report, self.compiled,
              self._cursor, self.hyperperiods_completed,
@@ -588,10 +622,10 @@ class Server:
         the reject policy; under drop-oldest the stalest ticket resolves
         terminally ("dropped", with a met=False verdict) instead.
 
-        A shed network (overload control) accepts the request but
-        resolves it immediately with a degraded verdict — degraded
-        operation is a per-network property, not a blanket
-        `BackpressureError` for everyone."""
+        A shed network (overload control) or one whose circuit breaker is
+        open accepts the request but resolves it immediately with a
+        degraded verdict — degraded operation is a per-network property,
+        not a blanket `BackpressureError` for everyone."""
         st = self._net(name)
         if st.autorun:
             raise ServeError(
@@ -605,7 +639,8 @@ class Server:
                 f"Server.register, pass step_fn=, or call attach()")
         t = Ticket(tid=next(self._tids), network=name, payload=payload,
                    deadline_s=deadline_s)
-        if st.shed:
+        if st.shed or (st.breaker is not None
+                       and st.breaker.state == "open"):
             self._resolve_terminal(t, "degraded")
             return t
         evicted = st.queue.push(t)
@@ -621,9 +656,10 @@ class Server:
 
         A cluster router ranks replicas on this: queue depth/capacity and
         slots give the backlog, the WCET response bound and effective
-        deadline give the headroom, and the shed flag marks replicas that
-        would resolve a submission degraded. (Breakers and mode changes are
-        not ported, so `breaker_open` and `departing` are False.)
+        deadline give the headroom, and the shed/breaker/departing flags
+        mark replicas that would resolve a submission degraded (shed, open
+        breaker) or are draining toward a staged mode that no longer
+        carries the network (`departing`).
         `bound_s` is None while the network is out of the analyzed program
         (e.g. shed: the report no longer carries a bound for it).
         """
@@ -640,8 +676,10 @@ class Server:
                                if st.queue is not None else 0),
             "slots": st.slots,
             "shed": st.shed,
-            "breaker_open": False,
-            "departing": False,
+            "breaker_open": (st.breaker is not None
+                             and st.breaker.state == "open"),
+            "departing": (self._staged_mode is not None
+                          and name not in self._staged_mode.nets),
             "bound_s": bound,
             "deadline_s": st.spec.deadline,
         }
@@ -652,13 +690,14 @@ class Server:
         serving that network's queued tickets in its static batch slots.
         Advances across hyperperiod boundaries; returns the executed Job.
 
-        At each hyperperiod boundary (before the first job), the overload
-        control loop sheds/restores — forbidden mid-hyperperiod because it
-        changes the schedule the in-flight bounds assume."""
+        At each hyperperiod boundary (before the first job), boundary
+        housekeeping runs: a staged mode switch applies and the overload
+        control loop sheds/restores — both are forbidden mid-hyperperiod
+        because they change the schedule the in-flight bounds assume."""
         if self.report is None:
             self.analyze()
-        if self._cursor == 0 and self.overload is not None:
-            self._overload_control()
+        if self._cursor == 0:
+            self._boundary()
         jobs = self.compiled.jobs
         job = jobs[self._cursor]
         release_abs = (self.clock_base_s + self.hyperperiods_completed
@@ -669,6 +708,14 @@ class Server:
             self._cursor = 0
             self.hyperperiods_completed += 1
         return job
+
+    def _boundary(self) -> None:
+        """Hyperperiod-boundary housekeeping (the only place the active
+        schedule may change): apply a staged mode, then shed/restore."""
+        if self._staged_mode is not None:
+            self._apply_mode()
+        if self.overload is not None:
+            self._overload_control()
 
     def _now_s(self) -> float:
         """Absolute model time at the current boundary: completed
@@ -683,19 +730,37 @@ class Server:
         st = self._nets[job.network]
         bound = self.report.bound(job.network)
         self.metrics["jobs"] += 1
+        if st.breaker is not None and not st.autorun:
+            action = st.breaker.on_release()
+            if action == "skip":
+                # open breaker: the network operates degraded — this
+                # job's worth of queued tickets resolves now rather than
+                # waiting behind a broken executor ("probe" falls through
+                # so the half-open breaker has a real job to judge)
+                k = 1 if (st.runner is None and st.cengine is None) \
+                    else st.slots
+                for t in st.queue.pop_upto(k):
+                    self._resolve_terminal(t, "degraded")
+                self.metrics["idle_jobs"] += 1
+                return
         if st.autorun and st.step_fn is not None:
             # MultiModelEngine mode: every job free-runs its no-arg fn
             # (autorun networks never hold tickets — submit refuses them)
             out, dt = self._serve_call(st, [], st.step_fn)
+            if out is _GIVE_UP:
+                return
             self.monitor.check(job.network, dt, bound)
         elif st.runner is not None and len(st.queue) > 0:
             tickets = st.queue.pop_upto(st.slots)
             with self._failing(tickets):
-                # malformed payloads are caller errors: they fail the
-                # tickets and raise
+                # malformed payloads are caller errors, not executor
+                # faults: they fail the tickets and raise without
+                # consuming the retry budget
                 batch = self._stack(st, [t.payload for t in tickets])
             out, dt = self._serve_call(st, tickets,
                                        lambda: st.runner(batch))
+            if out is _GIVE_UP:
+                return
             self.monitor.check(job.network, dt, bound)
             for i, t in enumerate(tickets):
                 self._finish(t, {k: v[i] for k, v in out.items()},
@@ -707,6 +772,8 @@ class Server:
             (t,) = tickets
             out, dt = self._serve_call(st, tickets,
                                        lambda: st.step_fn(t.payload))
+            if out is _GIVE_UP:
+                return
             self.monitor.check(job.network, dt, bound)
             self._finish(t, out, dt, bound, release_abs)
         else:
@@ -735,11 +802,14 @@ class Server:
             self.metrics["idle_jobs"] += 1
             return
         # a failed decode step keeps its in-flight requests in the engine
-        # for the NEXT job (the stream is resumable), so no ticket fails here
+        # for the NEXT job (the stream is resumable), so no ticket fails or
+        # degrades here — the breaker/retry accounting still applies
         info, _ = self._serve_call(st, [], ce.step)
+        if info is _GIVE_UP:
+            return
         for req in info.finished:
-            # pop defensively: a shed may have resolved the ticket degraded
-            # while its stream was still in flight
+            # pop defensively: a shed or mode switch may have resolved the
+            # ticket degraded while its stream was still in flight
             t = st.inflight.pop(req.rid, None)
             if t is None:
                 continue
@@ -793,20 +863,120 @@ class Server:
         t.status = "done"
         self.metrics["tickets"] += 1
 
-    # -- executor calls ---------------------------------------------------------
-    def enable_resilience(self, **kwargs) -> None:
-        """Fault injection, retries and circuit breaking are not ported."""
-        raise NotImplementedError(f"enable_resilience: {_RESILIENCE_ITEM}")
+    # -- resilience: faults, retries, breakers -------------------------------
+    def enable_resilience(self, *, faults=None, retry=None, breaker=None,
+                          watchdog_margin: float | None = None,
+                          overload: OverloadPolicy | None = None) -> None:
+        """Arm the recovery layer (see `repro_torch.serve.faults`):
+
+          faults           a `FaultPlan` — seeded injection of failures /
+                           timeouts / latency spikes into executor calls
+                           (None: no chaos, recovery machinery only);
+          retry            a `RetryPolicy` — bounded retry-with-backoff
+                           per serving job (default: 2 retries, no wait);
+          breaker          a `BreakerPolicy` — per-network circuit
+                           breaking: N consecutive failed jobs trip the
+                           network into degraded mode, a half-open probe
+                           job decides recovery;
+          watchdog_margin  arm a per-network `StragglerWatchdog` flagging
+                           jobs slower than margin x rolling median
+                           (counted as "straggler" events; None: off);
+          overload         convenience: also arm/replace the
+                           `OverloadPolicy` (same as the constructor
+                           knob).
+
+        With resilience armed, an executor failure no longer fails its
+        tickets and propagates: the job retries within its budget (the
+        same executor on the same device), then its tickets resolve
+        degraded, carrying the error, and the breaker counts the failure.
+        Caller errors (malformed payloads) still raise."""
+        from .faults import BreakerPolicy, RetryPolicy
+        self.resilience = Resilience(
+            injector=faults.injector() if faults is not None else None,
+            retry=retry or RetryPolicy(),
+            breaker_policy=breaker or BreakerPolicy(),
+            watchdog_margin=watchdog_margin)
+        if overload is not None:
+            self.overload = overload
+        self._arm_networks()
+
+    def _arm_networks(self) -> None:
+        """(Re)build per-network breakers/watchdogs for the current set
+        (idempotent; also run when networks are added or a mode applies)."""
+        from .faults import CircuitBreaker, StragglerWatchdog
+        res = self.resilience
+        for name, st in self._nets.items():
+            if st.breaker is None:
+                st.breaker = CircuitBreaker(name, res.breaker_policy,
+                                            monitor=self.monitor)
+            if res.watchdog_margin is not None and st.watchdog is None:
+                st.watchdog = StragglerWatchdog(margin=res.watchdog_margin)
 
     def _serve_call(self, st: _Network, tickets: list[Ticket],
                     thunk: Callable):
-        """One executor call for a job. Returns (output, dt_s): a raising
-        executor marks the popped tickets "failed" and the exception
-        propagates to the `step()`/`run()` caller."""
-        with self._failing(tickets):
-            t0 = time.perf_counter()
-            out = thunk()
-            return out, time.perf_counter() - t0
+        """One executor call for a job. Returns (output, dt_s).
+
+        Without resilience a raising executor marks the popped tickets
+        "failed" and the exception propagates to the `step()`/`run()`
+        caller. With resilience armed the call goes through
+        `_call_resilient` (injection, retries, breaker, watchdog) and a job
+        that exhausts its retry budget resolves its tickets degraded and
+        returns `(_GIVE_UP, 0.0)` instead of raising — serving continues."""
+        if self.resilience is None:
+            with self._failing(tickets):
+                t0 = time.perf_counter()
+                out = thunk()
+                return out, time.perf_counter() - t0
+        out, dt, error = self._call_resilient(st, thunk)
+        if error is None:
+            return out, dt
+        for t in tickets:
+            self._resolve_terminal(t, "degraded", error=error)
+        return _GIVE_UP, 0.0
+
+    def _call_resilient(self, st: _Network, thunk: Callable):
+        """Run `thunk` under the armed resilience: one seeded fault draw
+        per attempt (raising faults raise BEFORE the real call, so state
+        is untouched and the retry is clean), bounded retry-with-backoff,
+        breaker and watchdog outcome recording. Returns
+        `(out, dt_s, None)` on success — dt inflated by the spike factor
+        when a latency spike was drawn — or `(None, 0.0, error)` once the
+        budget is spent (ONE breaker failure per job: the breaker counts
+        consecutive failed *jobs*, not attempts). `error` names the
+        exception's type, so a caller can tell an injected fault from a
+        real executor (device) error."""
+        res = self.resilience
+        name = st.spec.name
+        error = None
+        for attempt in range(1 + res.retry.max_retries):
+            if attempt:
+                self.metrics["retries"] += 1
+                self.monitor.record_event(name, "retry")
+                backoff = res.retry.backoff(attempt)
+                if backoff > 0:
+                    time.sleep(backoff)
+            try:
+                spike = (res.injector.before_call(name)
+                         if res.injector is not None else None)
+                t0 = time.perf_counter()
+                out = thunk()
+                dt = time.perf_counter() - t0
+            except Exception as e:
+                error = f"{type(e).__name__}: {e}"
+                continue
+            if spike == "spike":
+                dt *= res.injector.plan.spike_factor
+            if st.breaker is not None:
+                st.breaker.record_success()
+            st.jobs_done += 1
+            if st.watchdog is not None and st.watchdog.observe(
+                    st.jobs_done, dt):
+                self.monitor.record_event(name, "straggler")
+            return out, dt, None
+        if st.breaker is not None:
+            st.breaker.record_failure()
+        self.monitor.record_event(name, "job_failed")
+        return None, 0.0, error
 
     def _resolve_terminal(self, t: Ticket, outcome: str,
                           error: str | None = None) -> None:
@@ -835,8 +1005,8 @@ class Server:
 
     # -- resilience: mixed-criticality overload control ----------------------
     def shed(self, name: str) -> None:
-        """Shed `name` into degraded mode: its queued tickets resolve
-        degraded, its queue pauses (submissions resolve
+        """Shed `name` into degraded mode: its queued and in-flight
+        tickets resolve degraded, its queue pauses (submissions resolve
         degraded immediately), its jobs leave the hyperperiod program,
         and the WCET analysis re-runs on the remaining active set so the
         survivors' response bounds stay sound. Refuses to shed the last
@@ -851,6 +1021,9 @@ class Server:
         self.monitor.record_event(name, "shed")
         for t in st.queue.pop_upto(len(st.queue)):
             self._resolve_terminal(t, "degraded")
+        for t in list(st.inflight.values()):
+            self._resolve_terminal(t, "degraded")
+        st.inflight.clear()
         st.shed = True
         self._reanalyze_active()
 
@@ -939,10 +1112,65 @@ class Server:
                 return False
         return True
 
-    # -- mode changes -----------------------------------------------------------
+    # -- resilience: atomic mode changes -------------------------------------
     def switch_mode(self, mode) -> "TasksetReport":
-        """Atomic hyperperiod-boundary mode changes are not ported."""
-        raise NotImplementedError(f"switch_mode: {_RESILIENCE_ITEM}")
+        """Atomically switch the whole admitted taskset to `mode` (a
+        `repro_torch.serve.modes.Mode`), at a hyperperiod boundary ONLY.
+
+        The incoming taskset is admission-checked and compiled NOW, for
+        this server's backend and device (`modes.prepare_mode`) — an
+        unschedulable or uncompilable mode raises and the current taskset
+        keeps serving untouched (the same atomic contract as `register`).
+        The prepared mode is then staged: the remaining jobs of the
+        current hyperperiod drain their queued tickets under the old
+        schedule, and exactly at the boundary the server swaps — queues of
+        networks present in both modes carry over, tickets of departing
+        networks resolve terminally ("dropped"), and the timeline
+        continues on the new hyperperiod program with the absolute clock
+        carried forward. Returns the new mode's (schedulable)
+        `TasksetReport`.
+
+        Decode networks (`register_decode`) cannot ride through a switch;
+        re-register them afterwards (the `Server.load` rule)."""
+        from .modes import prepare_mode
+        staged = prepare_mode(self, mode)
+        self._staged_mode = staged
+        # idle server or one already sitting at a boundary: apply now
+        # (step() applies staged modes only at cursor 0 otherwise)
+        if self.compiled is None or not self._nets or self._cursor == 0:
+            self._apply_mode()
+        return staged.report
+
+    def _apply_mode(self) -> None:
+        """Swap in the staged mode (hyperperiod boundary only)."""
+        staged = self._staged_mode
+        self._staged_mode = None
+        new = staged.nets
+        for name, st in self._nets.items():
+            if name in new:
+                # persisting network: its queued requests survive the
+                # switch and serve under the NEW mode's bounds
+                new[name].queue = st.queue
+            else:
+                for t in st.queue.pop_upto(len(st.queue)):
+                    self._resolve_terminal(t, "dropped")
+                for t in list(st.inflight.values()):
+                    self._resolve_terminal(t, "dropped")
+                st.inflight.clear()
+        if self.compiled is not None:
+            self.clock_base_s += (self.hyperperiods_completed
+                                  * self.compiled.hyperperiod_s)
+        self._nets = new
+        self.report = staged.report
+        self.compiled = staged.compiled
+        self._cursor = 0
+        self.hyperperiods_completed = 0
+        self._calm = 0
+        self.mode_name = staged.mode.name
+        self.metrics["mode_switches"] += 1
+        self.monitor.record_event(staged.mode.name, "mode_switch")
+        if self.resilience is not None:
+            self._arm_networks()
 
     def run(self, hyperperiods: int | None = None,
             duration_s: float | None = None, *,
@@ -982,7 +1210,9 @@ class Server:
                             for n, st in self._nets.items()},
                 "shed": self.shed_networks,
                 "mode": self.mode_name,
-                "breakers": {},          # circuit breakers are not ported
+                "breakers": {n: st.breaker.state
+                             for n, st in self._nets.items()
+                             if st.breaker is not None},
                 "hyperperiods_completed": self.hyperperiods_completed}
         continuous = {n: {**st.cengine.metrics,
                           "occupancy": st.cengine.state.occupancy,

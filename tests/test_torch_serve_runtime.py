@@ -135,9 +135,14 @@ def test_admission_reject_is_atomic():
     assert t.done
 
 
-def test_waiting_paths_raise_not_implemented():
-    """Resilience and mode changes wait for their port. (LM networks and
-    `register_decode` are ported: tests/test_torch_continuous.py.)"""
+def test_waiting_paths_raise_not_implemented(tmp_path):
+    """What still waits for its port raises, naming its ROADMAP item:
+    cluster artifacts (item 13) and training recovery (item 15). A
+    non-config network is a TypeError. (Resilience and mode changes are
+    ported: tests/test_torch_resilience.py; LM networks and
+    `register_decode`: tests/test_torch_continuous.py.)"""
+    from repro_torch.analysis.runner import analyze_cluster
+    from repro_torch.train import fault
     srv = TS.Server(TH.scaled_paper_machine(4), backend="torch",
                     device="cpu")
 
@@ -146,11 +151,13 @@ def test_waiting_paths_raise_not_implemented():
 
     with pytest.raises(TypeError, match="ModelConfig"):
         srv.register("lm", Cfg(), period_s=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.enable_resilience()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        srv.switch_mode(None)
     assert srv.networks == []
+    with pytest.raises(NotImplementedError, match="item 13"):
+        analyze_cluster(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fault.run_with_recovery(lambda s, i: s, None, 1, None)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        fault.elastic_remesh(None, None, None)
 
 
 def test_save_load_serves_bit_exact(tmp_path):
