@@ -43,9 +43,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      without touching the server;
   6. LM: K4 (flash attention) and K5 (the gated scan) against their plain
      torch versions on the card (K4 in f32, bf16 and f16 on the CPU tests'
-     shapes, bf16 at the path's shapes), with times beside the plain
-     version's, the
-     library call's and the bound; zamba2-1.2B at full width as a float32
+     shapes and on the moe and encdec paths' shapes: head dim 128 with 6 q
+     heads per kv head, non-causal with Sq != Skv, Sq = 1), with times at
+     every LM path's shapes beside the plain version's, the library
+     call's and the bound; zamba2-1.2B at full width as a float32
      copy: prefill of 32 tokens + 4 decode steps, card against CPU, then
      served through `Server.register_decode` (4 slots, 8 tickets, 4 of
      them arriving mid-stream), every stream equal token for token to the
@@ -57,11 +58,29 @@ Phases, each printing its own lines; any failure exits non-zero:
      `PredictableEngine` on the same bf16 params (a deadline check per
      decode step, 6 K4 per prefill, 38 K5 per decode step), and the two
      CLIs: `repro_torch.launch.serve --analyze-only` and, in a subprocess,
-     `python -m repro_torch.analysis` on the saved ResNet50-224 deployment.
+     `python -m repro_torch.analysis` on the saved ResNet50-224 deployment;
+  7. rwkv6-1.6B (RWKV, full width and depth): a float32 copy card against
+     CPU (prefill 4 x 32 + 4 decode steps) and through
+     `Server.register_decode` (8 of 8 streams equal `ServeEngine.serve`),
+     then bf16 through the Server (8 tickets of 32 tokens); no kernel
+     launches on this path (all counts 0);
+  8. mixtral-8x22B (moe, full width, depth cut to 8 of 56 layers in bf16
+     and 1 in float32): the float32 layer card against CPU (the routers'
+     expert ids compared first; a near-tie flip is reported with its two
+     probabilities) and through the Server against the oracle, then bf16
+     through the Server; K4 8 times per prefill, never in a decode step;
+  9. seamless-m4t-medium (encdec, full width and depth): a float32 copy
+     card against CPU, then bf16 through `ServeEngine.serve` (8 requests
+     of 16 tokens); K4 36 times per prefill and 12 per decode step;
+     continuous batching and `PredictableEngine` refuse encdec, as in the
+     JAX package.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json. Weights and inputs are random, from seeds.
+Each LM phase takes its admission period from the modeled bound it
+prints, and prints its seconds and peak device memory. Then a `[phases]`
+line with every phase's seconds and the run's, one JSON line with every
+kernel's numbers, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Details go to chip_smoke.json in the output
+directory. Weights and inputs are random, from seeds.
 """
 
 from __future__ import annotations
@@ -121,6 +140,23 @@ class Bound:
     @property
     def by(self) -> str:
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+class Clock:
+    """Seconds of each phase of the run, taken as laps."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.laps: dict = {}
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.laps[name] = round(now - self.last, 2)
+        self.last = now
+
+    def summary(self) -> dict:
+        return {**self.laps,
+                "total": round(time.perf_counter() - self.start, 2)}
 
 
 def events_ms(torch, fn, runs: int = RUNS) -> float:
@@ -323,24 +359,454 @@ K4_TEST_CASES = [((1, 4, 4, 64, 64, 32), True, None),
                  ((1, 4, 1, 33, 77, 16), True, None),
                  ((2, 4, 4, 64, 64, 32), False, None),
                  ((2, 8, 2, 1, 100, 64), True, None)]
+# K4 on the shapes and modes of the moe and encdec paths: mixtral-8x22b's
+# prefill (head dim 128, 6 q heads per kv head, causal, with and without a
+# window), seamless-m4t-medium's cross attention at prefill (Sq != Skv,
+# non-causal) and in a decode step (Sq = 1, non-causal)
+K4_PATH_CASES = [((1, 48, 8, 128, 128, 128), True, None),
+                 ((1, 48, 8, 128, 128, 128), True, 37),
+                 ((4, 16, 16, 32, 128, 64), False, None),
+                 ((4, 16, 16, 1, 128, 64), False, None)]
+# K4 timed at the LM paths' own shapes: (what, (B, Hq, Hkv, Sq, Skv, D),
+# causal, window)
+K4_TIMED = [("zamba2-1.2b prefill, batch 1", (1, 32, 32, 128, 128, 64), True,
+             None),
+            ("zamba2-1.2b prefill, batch 4", (4, 32, 32, 128, 128, 64), True,
+             None),
+            ("mixtral-8x22b prefill", (1, 48, 8, 128, 128, 128), True, 4096),
+            ("seamless-m4t-medium encoder and cross prefill",
+             (4, 16, 16, 128, 128, 64), False, None),
+            ("seamless-m4t-medium decoder prefill", (4, 16, 16, 128, 128, 64),
+             True, None),
+            ("seamless-m4t-medium cross attention, decode step",
+             (4, 16, 16, 1, 128, 64), False, None)]
 
 
-def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
+def k4_bound(B, Hq, Hkv, Sq, Skv, D, causal, window, itemsize) -> Bound:
+    """K4's bound: q, k, v read once and the output written once, against
+    the 2 x 2 x D operations of each (q, kv) pair this mask lets through."""
+    offs = Skv - Sq
+    pairs = 0
+    for i in range(Sq):
+        hi = min(Skv - 1, i + offs) if causal else Skv - 1
+        lo = max(0, i + offs - window + 1) if window is not None else 0
+        pairs += max(0, hi - lo + 1)
+    bd = Bound()
+    bd.add((2 * B * Hq * Sq * D + 2 * B * Hkv * Skv * D) * itemsize,
+           4 * B * Hq * D * pairs, PEAK_BF16_FLOPS)
+    return bd
+
+
+def sdpa_call(torch, q, k, v, causal):
+    """`scaled_dot_product_attention` on K4's inputs: GQA heads through
+    `enable_gqa` where this torch has it, else k and v repeated up front
+    (outside the timed call)."""
+    F = torch.nn.functional
+    g = q.shape[1] // k.shape[1]
+    if g > 1:
+        try:
+            F.scaled_dot_product_attention(q[:, :, :1], k, v,
+                                           enable_gqa=True)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+        except TypeError:
+            k, v = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+# -- LM serving helpers (zamba2-1.2B and the moe, RWKV and encdec phases) -----
+
+def kernel_counts(per_prefill: dict, per_step: dict, prefills: int,
+                  steps: int) -> dict:
+    """The LM kernels' expected launches for `prefills` prefills and
+    `steps` decode steps."""
+    return {k: per_prefill[k] * prefills + per_step[k] * steps
+            for k in LM_KERNELS}
+
+
+def same_counts(counts: dict, want: dict) -> bool:
+    """The LM kernels' launch counts in `counts` are `want`'s."""
+    return all(counts[k] == want[k] for k in LM_KERNELS)
+
+
+def admission_period(tag, cfg, params) -> tuple[float, float]:
+    """A decode period from the modeled bound that admission computes for
+    one slot-batched decode step (4 slots, a cache of 256) on
+    scaled_paper_machine(64): twice the bound, rounded up to a millisecond.
+    Returns (period_s, bound_s)."""
+    from repro_torch.hw import scaled_paper_machine
+    from repro_torch.serve import Server
+    probe = Server(scaled_paper_machine(64), backend="cuda")
+    v = probe.register_decode(tag, cfg, period_s=3600.0, params=params,
+                              slots=4, prompt_len=128, max_new_tokens=8,
+                              max_len=256)
+    return math.ceil(v.response_bound_s * 2e3) / 1e3, v.response_bound_s
+
+
+def serve_tickets(torch, tag, cfg, params, prompts, new_tokens, period_s,
+                  per_prefill, per_step):
+    """`Server.register_decode` with 4 slots: 4 tickets before the first
+    step and 4 mid-stream, each done with `new_tokens` tokens. The launch
+    counts are read around the serving loop alone, and must be the
+    kernels' launches per prefill and per decode step times the prefills
+    and decode steps run."""
+    from repro_torch.hw import scaled_paper_machine
+    from repro_torch.kernels import _lib
+    from repro_torch.serve import Server
+    srv = Server(scaled_paper_machine(64), backend="cuda")
+    t0 = time.perf_counter()
+    verdict = srv.register_decode(
+        tag, cfg, period_s=period_s, params=params, slots=4,
+        prompt_len=128, max_new_tokens=new_tokens, max_len=256)
+    say(f"[lm] admitted {cfg.name} ({cfg.dtype}) in "
+        f"{time.perf_counter() - t0:.2f} s: modeled bound of one decode "
+        f"step on the modeled RISC-V machine "
+        f"{verdict.response_bound_s * 1e3:.3f} ms, period "
+        f"{period_s * 1e3:g} ms")
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    tickets = [srv.submit(tag, prompts[i]) for i in range(4)]
+    jobs = 0
+    while not all(t.terminal for t in tickets) or len(tickets) < 8:
+        srv.step()
+        jobs += 1
+        if jobs == 3:                        # 4 arrive mid-stream
+            tickets += [srv.submit(tag, prompts[i]) for i in range(4, 8)]
+        if jobs > 1000:
+            fail(f"the {cfg.name} server did not finish 8 tickets in 1000 "
+                 f"jobs")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    tele = srv.telemetry()["continuous"][tag]
+    for t in tickets:
+        if t.status != "done":
+            fail(f"{cfg.name} ticket {t.tid} ended {t.status}: {t.error}")
+        if len(t.result().output) != new_tokens:
+            fail(f"{cfg.name} ticket {t.tid}: {len(t.result().output)} "
+                 f"tokens")
+    want = kernel_counts(per_prefill, per_step, tele["prefills"],
+                         tele["decode_steps"])
+    if not same_counts(counts, want):
+        fail(f"{cfg.name} serving launched {counts} for {tele['prefills']} "
+             f"prefills and {tele['decode_steps']} decode steps (expected "
+             f"{per_prefill} per prefill, {per_step} per decode step)")
+    return srv, verdict, tickets, jobs, wall_s, counts, tele
+
+
+def oracle(cfg, params, prompts, new_tokens):
+    """The streams of `ServeEngine.serve(batch_size=4)` on the card, every
+    prompt left-padded to 128 tokens."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    reqs = [Request(rid=i, prompt=list(p), max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    ServeEngine(cfg, params, batch_size=4, max_len=256).serve(
+        reqs, prompt_len=128)
+    return [r.out for r in reqs]
+
+
+def f32_server_equals_oracle(torch, tag, cfg32, p_dev, prompts, period_s,
+                             per_prefill, per_step) -> float:
+    """The continuous-batching path exactly: per-row pos, the clamped
+    per-row cache writes and each slot's own state, on a float32 copy,
+    where only the float32 rounding of another GEMM shape separates the
+    Server's schedule from the oracle's. Every stream must be equal."""
+    _, _, tickets, _, wall_s, _, _ = serve_tickets(
+        torch, tag, cfg32, p_dev, prompts, 8, period_s, per_prefill,
+        per_step)
+    want = oracle(cfg32, p_dev, prompts, 8)
+    for t, w in zip(tickets, want):
+        if t.result().output != w:
+            fail(f"{cfg32.name} float32 Server ticket {t.tid} gave "
+                 f"{t.result().output}, ServeEngine.serve {w}")
+    say(f"[lm] {cfg32.name} float32 through Server.register_decode: 8 of 8 "
+        f"streams (8 tokens each, 4 tickets mid-stream) equal "
+        f"ServeEngine.serve(batch_size=4) token for token ({wall_s:.2f} s)")
+    return wall_s
+
+
+class RouterLog:
+    """Records the moe routers' expert ids and probabilities while active
+    (wraps `repro_torch.models.moe._router`, which every dispatch calls)."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe._router
+
+        def rec(p, x, cfg):
+            gate, idx, aux = self._orig(p, x, cfg)
+            probs = self.torch.softmax(x.float() @ p["router"].float(), -1)
+            self.calls.append((idx.cpu(), probs.cpu()))
+            return gate, idx, aux
+
+        moe._router = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._router = self._orig
+
+
+# a routing difference between the card and the CPU is a near-tie flip if
+# the two experts' probabilities differ by less than this on the CPU
+FLIP_GAP = 1e-4
+
+
+def card_vs_cpu(torch, lm, cfg32, p_dev, p_cpu, toks, steps, max_len):
+    """Prefill of `toks` and `steps` greedy decode steps of a float32 copy,
+    on the card and on the CPU (teacher-forced by the card's tokens): the
+    logits within rtol 1e-3 / atol 1e-3 max|logits| and the greedy tokens
+    equal. An encdec encoder reads `toks` as its source tokens. For moe,
+    the routers' top-k expert ids are compared before the logits: a step
+    whose routing differs at a near-tie (`FLIP_GAP`) is reported as a flip
+    with the two probabilities, and its logits and those after it are not
+    held. Returns the card's launch counts of the prefill and of each
+    decode step."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    dev = torch.device("cuda")
+    B, S = toks.shape
+    sides = {}
+    for side, p_, d_ in (("card", p_dev, dev), ("cpu", p_cpu, "cpu")):
+        with RouterLog(torch) as log:
+            _lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            batch = {"tokens": torch.as_tensor(toks, device=d_)}
+            if cfg32.family == "encdec":
+                batch["src_tokens"] = batch["tokens"]
+            logits, cache = prefill_step(cfg32)(
+                p_, batch, init_cache(cfg32, B, max_len, enc_len=S,
+                                      device=d_))
+            outs = [logits.cpu()]
+            counts = [_lib.launch_counts()]
+            for _ in range(steps):
+                tok = torch.argmax(outs[-1][:, -1], dim=-1)[:, None]
+                if side == "cpu":               # teacher-forced by the card
+                    tok = torch.argmax(sides["card"]["logits"][len(outs) - 1]
+                                       [:, -1], dim=-1)[:, None]
+                _lib.reset_launch_counts()
+                logits, cache = decode_step(cfg32)(p_, cache, tok.to(d_))
+                outs.append(logits.cpu())
+                counts.append(_lib.launch_counts())
+        sides[side] = {"logits": outs, "counts": counts, "router": log.calls,
+                       "s": time.perf_counter() - t0}
+    held = steps + 1
+    flips = []
+    per_step = max(1, cfg32.num_layers)
+    for c, ((ic, _), (iu, pu)) in enumerate(zip(sides["card"]["router"],
+                                                sides["cpu"]["router"])):
+        rows = (ic != iu).any(-1).reshape(-1)
+        if not rows.any():
+            continue
+        flat_c, flat_u = ic.reshape(-1, ic.shape[-1]), iu.reshape(-1,
+                                                                  iu.shape[-1])
+        probs = pu.reshape(-1, pu.shape[-1])
+        for t in rows.nonzero().reshape(-1).tolist():
+            ids = sorted(set(flat_c[t].tolist()) ^ set(flat_u[t].tolist())
+                         or set(flat_c[t].tolist()))
+            a, b = ids[0], ids[-1]
+            pa, pb = probs[t, a].item(), probs[t, b].item()
+            flips.append({"step": c // per_step, "layer": c % per_step,
+                          "token": t, "experts": [a, b], "probs": [pa, pb]})
+            say(f"[lm] {cfg32.name} float32 router flip at step "
+                f"{c // per_step}, layer {c % per_step}, token {t}: experts "
+                f"{a} and {b} with CPU probabilities {pa:.9f} and {pb:.9f}")
+            if abs(pa - pb) >= FLIP_GAP:
+                fail(f"{cfg32.name} float32: card and CPU route token {t} "
+                     f"of step {c // per_step} to different experts at a "
+                     f"probability gap of {abs(pa - pb):.3g} (not a "
+                     f"near-tie, < {FLIP_GAP})")
+        held = min(held, c // per_step)
+    for i, (ld, lc) in enumerate(zip(sides["card"]["logits"],
+                                     sides["cpu"]["logits"])):
+        if i >= held:
+            break
+        atol = 1e-3 * lc.abs().max().item()
+        err = (ld - lc).abs().max().item()
+        what = "prefill" if i == 0 else f"decode step {i}"
+        if not torch.allclose(ld, lc, rtol=1e-3, atol=atol):
+            fail(f"{cfg32.name} float32 {what}: card logits differ from the "
+                 f"CPU's (max abs err {err}, atol {atol})")
+        if not torch.equal(ld[:, -1].argmax(-1), lc[:, -1].argmax(-1)):
+            fail(f"{cfg32.name} float32 {what}: greedy tokens differ")
+        lm["checks"].append({"model": f"{cfg32.name} f32", "step": what,
+                             "max_abs_err": err, "atol": atol})
+    routed = (f"; routers' top-{cfg32.top_k} expert ids equal at every "
+              f"layer and step" if cfg32.family == "moe" and not flips
+              else f"; {len(flips)} router flips at near-ties, steps from "
+              f"{held} on not held" if flips else "")
+    say(f"[lm] {cfg32.name} float32: prefill ({B} x {S} tokens) + {steps} "
+        f"decode steps, card logits within rtol 1e-3 / atol 1e-3 "
+        f"max|logits| of the CPU's and greedy tokens equal{routed} (card "
+        f"{sides['card']['s']:.2f} s, CPU {sides['cpu']['s']:.2f} s)")
+    lm.setdefault("router_flips", {})[cfg32.name] = flips
+    return sides["card"]["counts"]
+
+
+def bf16_streams(torch, cfg, params, prompts, tickets, want) -> dict:
+    """A diagnostic, not a gate: how far bf16 rounding carries the Server's
+    streams from the oracle's. LMBackend prefills each prompt alone (GEMMs
+    with M = 128), the oracle four at once (M = 512); with random weights
+    the layers amplify bf16 rounding far beyond one ulp of the logits, so
+    greedy streams flip wherever the top-2 margin is inside this noise."""
+    from repro_torch.models import init_cache, prefill_step
+    dev = torch.device("cuda")
+    diffs = []
+    for g0 in (0, 4):
+        padded = torch.tensor([[0] * (128 - len(p)) + p
+                               for p in prompts[g0:g0 + 4]], device=dev)
+        l4, _ = prefill_step(cfg)(params, {"tokens": padded},
+                                  init_cache(cfg, 4, 256, device=dev))
+        for i in range(4):
+            l1, _ = prefill_step(cfg)(params, {"tokens": padded[i:i + 1]},
+                                      init_cache(cfg, 1, 256, device=dev))
+            diffs.append((l1[0, -1] - l4[i, -1]).abs())
+    diffs = torch.cat(diffs).float()
+    noise = {q_: torch.quantile(diffs, q_).item() for q_ in (0.5, 0.99)}
+    noise["max"] = diffs.max().item()
+    say(f"[lm] {cfg.name} bf16 prefill logits, batch 1 vs batch 4 on the "
+        f"same 8 prompts: |difference| median {noise[0.5]:.4g}, 99th "
+        f"percentile {noise[0.99]:.4g}, max {noise['max']:.4g} (max |logit| "
+        f"{l4.abs().max().item():.3g})")
+    same, margins = 0, []
+    for t, p, w in zip(tickets, prompts, want):
+        got = t.result().output
+        if got == w:
+            same += 1
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, w)) if a != b)
+        padded = [0] * (128 - len(p)) + p + w[:i]
+        logits, _ = prefill_step(cfg)(
+            params, {"tokens": torch.tensor([padded], device=dev)},
+            init_cache(cfg, 1, 256, device=dev))
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        margins.append((top2[0] - top2[1]).item())
+    inside = sum(m < noise[0.99] for m in margins)
+    say(f"[lm] {cfg.name} bf16: {same} of 8 streams equal ServeEngine.serve("
+        f"batch_size=4) token for token; the rest first differ at top-2 "
+        f"margins {[round(m_, 4) for m_ in margins]}, {inside} of them below "
+        f"the 99th percentile of the noise (the float32 run holds this "
+        f"path to the oracle exactly)")
+    return {"streams_equal_oracle": same, "stream_margins": margins,
+            "prefill_noise": {str(k_): v_ for k_, v_ in noise.items()}}
+
+
+def backend_steps(backend, prompts):
+    """A batch-1 prefill and one 4-slot decode step of a Server's
+    `LMBackend`, the slots filled with the first four prompts."""
+    import numpy as np
+    cache = backend.init_cache()
+    for slot in range(4):
+        cache = backend.insert(backend.prefill(prompts[slot])[1], cache,
+                               slot)
+    prev = np.array([5, 6, 7, 8], np.int32)
+    valid = np.ones(4, bool)
+    lengths = np.ones(4, np.int32)
+    return (lambda: backend.prefill(prompts[0]),
+            lambda: backend.generate(cache, prev, valid, lengths))
+
+
+def step_timings(torch, name, what_prefill, prefill_once, decode_once,
+                 per_prefill, per_step, rows=4) -> dict:
+    """Launches, host times (median of RUNS, to the result on the host or
+    a synchronize) and the profiler's view of one prefill and one decode
+    step of `rows` rows. The launches of each must be `per_prefill` and
+    `per_step`, and the profiler must see the same."""
+    from repro_torch.kernels import _lib
+    got = {}
+    for what, fn in (("prefill", prefill_once), ("decode step", decode_once)):
+        _lib.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        got[what] = _lib.launch_counts()
+    if not (same_counts(got["prefill"], per_prefill) and
+            same_counts(got["decode step"], per_step)):
+        fail(f"{name}: launches per prefill {got['prefill']}, per decode "
+             f"step {got['decode step']}: expected {per_prefill} and "
+             f"{per_step}")
+    prefill_ms = host_ms(torch, prefill_once)
+    step_ms = host_ms(torch, decode_once)
+    say(f"[lm] {name}, {what_prefill}: {prefill_ms:.3f} ms (launches "
+        f"{got['prefill']}); {rows}-row decode step: median {step_ms:.3f} ms "
+        f"(launches {got['decode step']}), {rows * 1e3 / step_ms:.1f} "
+        f"tokens/s")
+    profiles = {}
+    for what, fn, want, unprof_ms in (
+            ("decode step", decode_once, per_step, step_ms),
+            ("prefill", prefill_once, per_prefill, prefill_ms)):
+        by_name, busy_us, wall_us, names = profile_once(torch, fn)
+        seen = {k: sum(f"{k}_kernel" in nm for nm in names)
+                for k in LM_KERNELS}
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        unprof_us = unprof_ms * 1e3
+        say(f"[lm] {name} profiled {what}: {len(names)} device events, busy "
+            f"{busy_us:.0f} us; profiled wall {wall_us:.0f} us, unprofiled "
+            f"median {unprof_us:.0f} us (idle share "
+            f"{1 - busy_us / unprof_us:.3f}); kernels seen {seen}; top: "
+            + "; ".join(f"{k} {v:.0f} us" for k, v in top))
+        if names and any(seen[k] != want[k] for k in LM_KERNELS):
+            fail(f"profiler saw {seen} kernel launches in one {name} {what}, "
+                 f"expected {want}")
+        if not names:
+            say(f"[lm] profiler recorded no device events for the {what}; "
+                "launches rest on the wrapper counters")
+        profiles[what] = {"device_events": len(names), "busy_us": busy_us,
+                          "profiled_wall_us": wall_us,
+                          "unprofiled_us": unprof_us, "kernels_seen": seen,
+                          "idle_share": 1 - busy_us / unprof_us,
+                          "top_us": top}
+    return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "decode_tokens_per_s": rows * 1e3 / step_ms,
+            "per_prefill": got["prefill"], "per_decode_step":
+            got["decode step"], "profile": profiles}
+
+
+def load_params(torch, tag, cfg, cut=""):
+    """`init_params` on the card from the run's seed, with its size."""
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    p = init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    n = sum(t.numel() for t in _leaves(p))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(p))
+    say(f"[{tag}] {cfg.name} {cfg.dtype}{cut}: {n / 1e9:.3f} B params, "
+        f"{nbytes / 1e9:.1f} GB on the card in {time.perf_counter() - t0:.1f} "
+        f"s")
+    return p, n
+
+
+def phase_end(torch, tag, t_phase, out: dict) -> None:
+    """Print and keep a model phase's seconds and peak device memory (the
+    largest `torch.cuda.max_memory_allocated()` read at its `free`s)."""
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[{tag}] phase {out['phase_s']:.1f} s, "
+        f"torch.cuda.max_memory_allocated {out['max_memory_allocated_gb']:.1f}"
+        f" GB")
+
+
+def free(torch, out: dict | None = None) -> None:
+    """Release the card's cached blocks; first keep the peak since the last
+    reset in `out["max_memory_allocated_gb"]` (the larger of the two)."""
+    import gc
+    if out is not None:
+        out["max_memory_allocated_gb"] = max(
+            out.get("max_memory_allocated_gb", 0.0),
+            torch.cuda.max_memory_allocated() / 1e9)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def lm_phase(torch, np, rng, kernels, report, smi, rtdep, clock) -> dict:
     """Phase 6. Returns the kernel launch counts of the LM serving run."""
     import dataclasses
 
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
-    from repro_torch.hw import scaled_paper_machine
-    from repro_torch.kernels import _lib
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
-    from repro_torch.models import (decode_step, init_cache, init_params,
-                                    params_to, prefill_step)
-    from repro_torch.serve import Server
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.models import init_params, params_to
 
     dev = torch.device("cuda")
     # float32 GEMMs in full float32, and bf16 GEMMs reduced in float32 (as
@@ -370,7 +836,8 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
 
     # -- 6a. K4 against its plain version ------------------------------------
     n = 0
-    for (B, Hq, Hkv, Sq, Skv, D), causal, window in K4_TEST_CASES:
+    for (B, Hq, Hkv, Sq, Skv, D), causal, window in (K4_TEST_CASES
+                                                     + K4_PATH_CASES):
         q, k, v = randn(B, Hq, Sq, D), randn(B, Hkv, Skv, D), \
             randn(B, Hkv, Skv, D)
         for scale in (None, 0.25):
@@ -382,7 +849,8 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
                                               scale), 3e-5, 1e-4)
             k4["max_abs_err"] = max(k4["max_abs_err"], err)
             n += 1
-    say(f"[K4] f32: {n} checks on the CPU tests' shapes within atol 3e-5, "
+    say(f"[K4] f32: {n} checks on the CPU tests' and the moe and encdec "
+        f"paths' shapes within atol 3e-5, "
         f"rtol 1e-4 (max abs err {k4['max_abs_err']:.3g})")
     # the 16-bit route (tensor cores) on the same cases. Tolerances: the
     # output is rounded to the type, and a kernel value a hair off the
@@ -393,7 +861,8 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
     for dt, name, atol, rtol in ((torch.bfloat16, "bf16", 2e-2, 1e-2),
                                  (torch.float16, "f16", 4e-3, 2e-3)):
         n, worst = 0, 0.0
-        for (B, Hq, Hkv, Sq, Skv, D), causal, window in K4_TEST_CASES:
+        for (B, Hq, Hkv, Sq, Skv, D), causal, window in (K4_TEST_CASES
+                                                         + K4_PATH_CASES):
             q = randn(B, Hq, Sq, D, dtype=dt)
             k, v = (randn(B, Hkv, Skv, D, dtype=dt) for _ in range(2))
             for scale in (None, 0.25):
@@ -409,36 +878,40 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
         lm["checks"].append({"kernel": "flash_attention", "dtype": name,
                              "cases": n, "max_abs_err": worst,
                              "atol": atol, "rtol": rtol})
-        say(f"[K4] {name} (tensor cores): {n} checks on the CPU tests' "
-            f"shapes within atol {atol}, rtol {rtol} (max abs err "
-            f"{worst:.3g})")
-    for B in (1, 4):
-        # the path's shape: zamba2's shared attention over a 128-token
-        # prompt, at batch 1 (LMBackend prefill) and 4 (ServeEngine)
-        Hq, S, D = 32, 128, 64
-        q, k, v = (randn(B, Hq, S, D, dtype=torch.bfloat16)
-                   for _ in range(3))
-        err = close(f"K4 bf16 {(B, Hq, S, D)}",
-                    flash_attention(q, k, v, causal=True),
-                    flash_attention_plain(q, k, v, True), 2e-2, 0.0)
+        say(f"[K4] {name} (tensor cores): {n} checks on the CPU tests' and "
+            f"the moe and encdec paths' shapes within atol {atol}, rtol "
+            f"{rtol} (max abs err {worst:.3g})")
+    for what, (B, Hq, Hkv, Sq, Skv, D), causal, window in K4_TIMED:
+        q = randn(B, Hq, Sq, D, dtype=torch.bfloat16)
+        k, v = (randn(B, Hkv, Skv, D, dtype=torch.bfloat16)
+                for _ in range(2))
+        shape = (B, Hq, Hkv, Sq, Skv, D)
+        err = close(f"K4 bf16 {what} {shape}",
+                    flash_attention(q, k, v, causal=causal, window=window),
+                    flash_attention_plain(q, k, v, causal, window), 2e-2,
+                    0.0 if what.startswith("zamba2") else 1e-2)
         k4["max_abs_err"] = max(k4["max_abs_err"], err)
-        ms = graph_ms(torch, lambda: flash_attention(q, k, v, causal=True))
-        pms = graph_ms(torch, lambda: flash_attention_plain(q, k, v, True))
-        lib_ms = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True))
-        bd = Bound()
-        b = bd.add(4 * q.numel() * 2,
-                   2 * 2 * B * Hq * D * (S * (S + 1) // 2), PEAK_BF16_FLOPS)
-        say(f"[K4] bf16 {(B, Hq, S, D)} causal: max abs err {err:.3g} "
-            f"(atol 2e-2); device time (CUDA graph) kernel {ms:.4f} ms, "
-            f"plain {pms:.4f} ms, library (scaled_dot_product_attention) "
-            f"{lib_ms:.4f} ms, bound {b:.5f} ms ({bd.by})")
-        lm["checks"].append({"kernel": "flash_attention",
-                             "shape": [B, Hq, S, D], "dtype": "bf16",
+        ms = graph_ms(torch, lambda: flash_attention(
+            q, k, v, causal=causal, window=window))
+        pms = graph_ms(torch, lambda: flash_attention_plain(
+            q, k, v, causal, window))
+        # the window of 4096 reaches past every row of a 128-token prompt:
+        # SDPA's causal mask is the same mask there
+        lib_ms = graph_ms(torch, sdpa_call(torch, q, k, v, causal))
+        bd = k4_bound(*shape, causal, window, 2)
+        say(f"[K4] bf16 {what} {shape} causal={causal} window={window}: "
+            f"max abs err {err:.3g} (atol 2e-2); device time (CUDA "
+            f"graph) kernel {ms:.4f} ms, plain {pms:.4f} ms, library "
+            f"(scaled_dot_product_attention) {lib_ms:.4f} ms, bound "
+            f"{bd.ms:.5f} ms ({bd.by})")
+        lm["checks"].append({"kernel": "flash_attention", "path": what,
+                             "shape": list(shape), "causal": causal,
+                             "window": window, "dtype": "bf16",
                              "max_abs_err": err, "ms": ms, "plain_ms": pms,
-                             "library_ms": lib_ms, "bound_ms": b})
-        if B == 1:
-            k4.update(ms=ms, plain_ms=pms, library_ms=lib_ms, bound_ms=b,
+                             "library_ms": lib_ms, "bound_ms": bd.ms,
+                             "bound_by": bd.by})
+        if what == "zamba2-1.2b prefill, batch 1":
+            k4.update(ms=ms, plain_ms=pms, library_ms=lib_ms, bound_ms=bd.ms,
                       bound_by=bd.by)
 
     # -- 6b. K5 against its plain version ------------------------------------
@@ -483,126 +956,31 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
             k5.update(ms=ms, plain_ms=pms, library_ms=lib_ms, bound_ms=b,
                       bound_by=bd.by)
 
+    clock.lap("6a-6b LM kernels")
+
     # -- 6c. zamba2-1.2B at full width, float32 copy -------------------------
     cfg = get_config("zamba2-1.2b")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     # K4 once per shared-attention application (6), K5 once per Mamba2
     # layer in a decode step (38)
     n_k4, n_k5 = cfg.num_layers // cfg.attn_every, cfg.num_layers
+    per_prefill = {"flash_attention": n_k4, "ssm_scan": 0}
+    per_step = {"flash_attention": 0, "ssm_scan": n_k5}
     # the 8 prompts (16-128 tokens) that both Server runs below answer
     lens = rng.integers(16, 129, size=8)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
                for n in lens]
 
-    def serve_tickets(cfg_, params_, new_tokens):
-        """`Server.register_decode` with 4 slots: 4 tickets before the
-        first step and 4 mid-stream, each done with `new_tokens` tokens.
-        The launch counts are read around the serving loop alone."""
-        srv = Server(scaled_paper_machine(64), backend="cuda")
-        t0 = time.perf_counter()
-        verdict = srv.register_decode(
-            "zamba2", cfg_, period_s=0.1, params=params_, slots=4,
-            prompt_len=128, max_new_tokens=new_tokens, max_len=256)
-        say(f"[lm] admitted zamba2-1.2b ({cfg_.dtype}) in "
-            f"{time.perf_counter() - t0:.2f} s: modeled bound of one decode "
-            f"step on the modeled RISC-V machine "
-            f"{verdict.response_bound_s * 1e3:.3f} ms, period 100 ms")
-        _lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        tickets = [srv.submit("zamba2", prompts[i]) for i in range(4)]
-        jobs = 0
-        while not all(t.terminal for t in tickets) or len(tickets) < 8:
-            srv.step()
-            jobs += 1
-            if jobs == 3:                        # 4 arrive mid-stream
-                tickets += [srv.submit("zamba2", prompts[i])
-                            for i in range(4, 8)]
-            if jobs > 1000:
-                fail("the LM server did not finish 8 tickets in 1000 jobs")
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        counts = _lib.launch_counts()
-        tele = srv.telemetry()["continuous"]["zamba2"]
-        for t in tickets:
-            if t.status != "done":
-                fail(f"LM ticket {t.tid} ended {t.status}: {t.error}")
-            if len(t.result().output) != new_tokens:
-                fail(f"LM ticket {t.tid}: {len(t.result().output)} tokens")
-        if counts["flash_attention"] != n_k4 * tele["prefills"] or \
-                counts["ssm_scan"] != n_k5 * tele["decode_steps"]:
-            fail(f"LM serving launched {counts} for {tele['prefills']} "
-                 f"prefills and {tele['decode_steps']} decode steps "
-                 f"(expected {n_k4} K4 per prefill, {n_k5} K5 per decode "
-                 f"step)")
-        return srv, verdict, tickets, jobs, wall_s, counts, tele
-
-    def oracle(cfg_, params_, new_tokens):
-        """The streams of `ServeEngine.serve(batch_size=4)` on the card."""
-        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=new_tokens)
-                for i, p in enumerate(prompts)]
-        ServeEngine(cfg_, params_, batch_size=4, max_len=256).serve(
-            reqs, prompt_len=128)
-        return [r.out for r in reqs]
-
-    t0 = time.perf_counter()
-    p_dev = init_params(cfg32, torch.Generator(dev).manual_seed(SEED))
+    p_dev, _ = load_params(torch, "lm", cfg32, " copy")
     p_cpu = params_to(p_dev, "cpu")
-    n_params = sum(t.numel() for t in _leaves(p_dev))
-    say(f"[lm] zamba2-1.2b float32 copy: {n_params / 1e9:.3f} B params on "
-        f"the card and the CPU in {time.perf_counter() - t0:.1f} s")
     toks = rng.integers(1, cfg.vocab_size, (1, 32))
-    sides = {}
-    for side, p_, d_ in (("card", p_dev, dev), ("cpu", p_cpu, "cpu")):
-        _lib.reset_launch_counts()
-        t0 = time.perf_counter()
-        logits, cache = prefill_step(cfg32)(
-            p_, {"tokens": torch.as_tensor(toks, device=d_)},
-            init_cache(cfg32, 1, 64, device=d_))
-        outs = [logits.cpu()]
-        sides[side] = {"prefill_counts": _lib.launch_counts()}
-        for _ in range(4):
-            tok = torch.argmax(outs[-1][:, -1], dim=-1)[:, None]
-            if side == "cpu":                   # teacher-forced by the card
-                tok = torch.argmax(sides["card"]["logits"][len(outs) - 1]
-                                   [:, -1], dim=-1)[:, None]
-            logits, cache = decode_step(cfg32)(p_, cache, tok.to(d_))
-            outs.append(logits.cpu())
-        sides[side].update(logits=outs, s=time.perf_counter() - t0)
-    for i, (ld, lc) in enumerate(zip(sides["card"]["logits"],
-                                     sides["cpu"]["logits"])):
-        atol = 1e-3 * lc.abs().max().item()
-        err = (ld - lc).abs().max().item()
-        what = "prefill" if i == 0 else f"decode step {i}"
-        if not torch.allclose(ld, lc, rtol=1e-3, atol=atol):
-            fail(f"zamba2 float32 {what}: card logits differ from the CPU's "
-                 f"(max abs err {err}, atol {atol})")
-        if not torch.equal(ld[:, -1].argmax(-1), lc[:, -1].argmax(-1)):
-            fail(f"zamba2 float32 {what}: greedy tokens differ")
-        lm["checks"].append({"model": "zamba2-1.2b f32", "step": what,
-                             "max_abs_err": err, "atol": atol})
-    pc = sides["card"]["prefill_counts"]
-    if pc["flash_attention"] != n_k4:
-        fail(f"zamba2 float32 prefill launched K4 {pc['flash_attention']} "
-             f"times, expected {n_k4}")
-    say(f"[lm] zamba2-1.2b float32: prefill (32 tokens) + 4 decode steps, "
-        f"card logits within rtol 1e-3 / atol 1e-3 max|logits| of the CPU's "
-        f"and greedy tokens equal (card {sides['card']['s']:.2f} s, CPU "
-        f"{sides['cpu']['s']:.2f} s)")
-    del p_cpu, sides
-
-    # the continuous-batching path exactly: per-row pos, the clamped
-    # per-row cache writes and K5 resuming each slot's state, on the
-    # float32 copy, where only the float32 rounding of another GEMM shape
-    # separates the two schedules
-    _, _, tickets, _, wall_s, _, _ = serve_tickets(cfg32, p_dev, 8)
-    want = oracle(cfg32, p_dev, 8)
-    for t, w in zip(tickets, want):
-        if t.result().output != w:
-            fail(f"zamba2 float32 Server ticket {t.tid} gave "
-                 f"{t.result().output}, ServeEngine.serve {w}")
-    say(f"[lm] zamba2-1.2b float32 through Server.register_decode: 8 of 8 "
-        f"streams (8 tokens each, 4 tickets mid-stream) equal "
-        f"ServeEngine.serve(batch_size=4) token for token ({wall_s:.2f} s)")
+    counts = card_vs_cpu(torch, lm, cfg32, p_dev, p_cpu, toks, 4, 64)
+    if counts[0]["flash_attention"] != n_k4:
+        fail(f"zamba2 float32 prefill launched K4 "
+             f"{counts[0]['flash_attention']} times, expected {n_k4}")
+    del p_cpu
+    wall_s = f32_server_equals_oracle(torch, "zamba2", cfg32, p_dev, prompts,
+                                      0.1, per_prefill, per_step)
     lm["f32_server"] = {"streams_equal_oracle": 8, "wall_s": wall_s}
     del p_dev
     torch.cuda.empty_cache()
@@ -610,7 +988,8 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
     # -- 6d. the main path: zamba2-1.2B in bf16 through the Server -----------
     params = init_params(cfg, torch.Generator(dev).manual_seed(SEED))
     srv, verdict, tickets, jobs, wall_s, lm_counts, tele = serve_tickets(
-        cfg, params, 32)
+        torch, "zamba2", cfg, params, prompts, 32, 0.1, per_prefill,
+        per_step)
     for k in LM_KERNELS:
         if lm_counts[k] == 0:
             fail(f"kernel {k} was not launched on the LM serving path")
@@ -619,121 +998,26 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep) -> dict:
         f"({tele['prefills']} prefills, {tele['decode_steps']} decode "
         f"steps, {wall_s:.2f} s, {n_tok / wall_s:.1f} tokens/s end to end); "
         f"launches {lm_counts}")
-
-    # A diagnostic, not a gate: how far bf16 rounding carries the streams
-    # from the oracle's. LMBackend prefills each prompt alone (GEMMs with
-    # M = 128), the oracle four at once (M = 512); with random weights the
-    # 38 layers amplify bf16 rounding far beyond one ulp of the logits, so
-    # greedy streams flip wherever the top-2 margin is inside this noise.
-    diffs = []
-    for g0 in (0, 4):
-        padded = torch.tensor([[0] * (128 - len(p)) + p
-                               for p in prompts[g0:g0 + 4]], device=dev)
-        l4, _ = prefill_step(cfg)(params, {"tokens": padded},
-                                  init_cache(cfg, 4, 256, device=dev))
-        for i in range(4):
-            l1, _ = prefill_step(cfg)(params, {"tokens": padded[i:i + 1]},
-                                      init_cache(cfg, 1, 256, device=dev))
-            diffs.append((l1[0, -1] - l4[i, -1]).abs())
-    diffs = torch.cat(diffs).float()
-    noise = {q_: torch.quantile(diffs, q_).item() for q_ in (0.5, 0.99)}
-    noise["max"] = diffs.max().item()
-    say(f"[lm] bf16 prefill logits, batch 1 vs batch 4 on the same 8 "
-        f"prompts: |difference| median {noise[0.5]:.4g}, 99th percentile "
-        f"{noise[0.99]:.4g}, max {noise['max']:.4g} (max |logit| "
-        f"{l4.abs().max().item():.3g})")
-    want = oracle(cfg, params, 32)
-    same, margins = 0, []
-    for t, p, w in zip(tickets, prompts, want):
-        got = t.result().output
-        if got == w:
-            same += 1
-            continue
-        i = next(j for j, (a, b) in enumerate(zip(got, w)) if a != b)
-        padded = [0] * (128 - len(p)) + p + w[:i]
-        logits, _ = prefill_step(cfg)(
-            params, {"tokens": torch.tensor([padded], device=dev)},
-            init_cache(cfg, 1, 256, device=dev))
-        top2 = torch.topk(logits[0, -1].float(), 2).values
-        margins.append((top2[0] - top2[1]).item())
-    inside = sum(m < noise[0.99] for m in margins)
-    say(f"[lm] bf16: {same} of 8 streams equal ServeEngine.serve("
-        f"batch_size=4) token for token; the rest first differ at top-2 "
-        f"margins {[round(m_, 4) for m_ in margins]}, {inside} of them below "
-        f"the 99th percentile of the noise (the float32 run holds this "
-        f"path to the oracle exactly)")
-    backend = srv._nets["zamba2"].cengine.backend
-
-    # times and launches per prefill and per decode step
-    def prefill_once():
-        return backend.prefill(prompts[0])
-
-    _lib.reset_launch_counts()
-    prefill_once()
-    per_prefill = _lib.launch_counts()
-    cache = backend.init_cache()
-    for slot in range(4):
-        cache = backend.insert(backend.prefill(prompts[slot])[1], cache,
-                               slot)
-    prev = np.array([5, 6, 7, 8], np.int32)
-    valid = np.ones(4, bool)
-    lengths = np.ones(4, np.int32)
-
-    def decode_once():
-        return backend.generate(cache, prev, valid, lengths)
-
-    _lib.reset_launch_counts()
-    decode_once()
-    per_step = _lib.launch_counts()
-    if per_prefill["flash_attention"] != n_k4 or \
-            per_step["ssm_scan"] != n_k5:
-        fail(f"launches per prefill {per_prefill}, per decode step "
-             f"{per_step}: expected {n_k4} K4 and {n_k5} K5")
-    prefill_ms = host_ms(torch, prefill_once)
-    step_ms = host_ms(torch, decode_once)
-    say(f"[lm] bf16, batch-1 prefill of 128 tokens: {prefill_ms:.3f} ms "
-        f"(K4 x{per_prefill['flash_attention']}); 4-slot decode step: "
-        f"median {step_ms:.3f} ms (K5 x{per_step['ssm_scan']}), "
-        f"{4e3 / step_ms:.1f} tokens/s")
-    profiles = {}
-    for what, fn, kern, want in (("decode step", decode_once, "ssm_scan",
-                                  n_k5),
-                                 ("prefill", prefill_once,
-                                  "flash_attention", n_k4)):
-        by_name, busy_us, wall_us, names = profile_once(torch, fn)
-        seen = sum(f"{kern}_kernel" in nm for nm in names)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        unprof_us = (step_ms if what == "decode step" else prefill_ms) * 1e3
-        say(f"[lm] profiled {what}: {len(names)} device events, busy "
-            f"{busy_us:.0f} us; profiled wall {wall_us:.0f} us, unprofiled "
-            f"median {unprof_us:.0f} us (idle share "
-            f"{1 - busy_us / unprof_us:.3f}); {kern}_kernel x{seen}; top: "
-            + "; ".join(f"{k} {v:.0f} us" for k, v in top))
-        if names and seen != want:
-            fail(f"profiler saw {kern}_kernel {seen} times in one {what}, "
-                 f"expected {want}")
-        if not names:
-            say(f"[lm] profiler recorded no device events for the {what}; "
-                "launches rest on the wrapper counters")
-        else:
-            say(f"[lm] profiler confirms {seen} {kern}_kernel launches per "
-                f"{what}")
-        profiles[what] = {"device_events": len(names), "busy_us": busy_us,
-                          "profiled_wall_us": wall_us,
-                          "unprofiled_us": unprof_us, "kernel_seen": seen,
-                          "top_us": top}
+    streams = bf16_streams(torch, cfg, params, prompts, tickets,
+                           oracle(cfg, params, prompts, 32))
+    timing = step_timings(
+        torch, "zamba2-1.2b bf16", "batch-1 prefill of 128 tokens",
+        *backend_steps(srv._nets["zamba2"].cengine.backend, prompts),
+        per_prefill, per_step)
     lm.update(serve={"jobs": jobs, "wall_s": wall_s, "tokens": n_tok,
                      "tokens_per_s": n_tok / wall_s, "launches": lm_counts,
-                     "continuous": tele, "streams_equal_oracle": same,
+                     "continuous": tele,
+                     "streams_equal_oracle": streams["streams_equal_oracle"],
                      "bound_ms": verdict.response_bound_s * 1e3},
-              prefill_ms=prefill_ms, decode_step_ms=step_ms,
-              decode_tokens_per_s=4e3 / step_ms, per_prefill=per_prefill,
-              per_decode_step=per_step, profile=profiles, card=smi,
-              prefill_noise={str(k_): v_ for k_, v_ in noise.items()},
-              stream_margins=margins)
+              card=smi, **timing,
+              prefill_noise=streams["prefill_noise"],
+              stream_margins=streams["stream_margins"])
+
+    clock.lap("6c-6d zamba2-1.2b")
 
     # -- 6e. PredictableEngine on the same bf16 params; the two CLIs ---------
     predictable_step(torch, np, rng, cfg, params, rtdep, lm)
+    clock.lap("6e predictable")
     return lm_counts
 
 
@@ -1119,6 +1403,242 @@ def predictable_step(torch, np, rng, cfg, params, rtdep, lm) -> None:
         "launches": counts, "phase_s": time.perf_counter() - t_phase}
 
 
+def served_family(torch, rng, tag, out, cfg32, cfg16, toks, steps, per,
+                  cut32=" copy", cut16=""):
+    """A decoder-only family through the Server: a float32 copy (`cfg32`)
+    card against CPU on `toks` with `steps` decode steps, and through
+    `Server.register_decode` against `ServeEngine.serve`; then `cfg16`
+    (bf16) through the Server, with the streams against the oracle beside
+    the bf16 noise, step times and the profiler's view. `per(cfg)` gives
+    the kernels' launches per prefill and per decode step. Each admission
+    period comes from the modeled bound it prints. Returns the bf16 Server
+    run's launch counts."""
+    from repro_torch.models import params_to
+
+    lens = rng.integers(16, 129, size=8)
+    prompts = [rng.integers(1, cfg16.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    p_dev, _ = load_params(torch, tag, cfg32, cut32)
+    p_cpu = params_to(p_dev, "cpu")
+    counts = card_vs_cpu(torch, out, cfg32, p_dev, p_cpu, toks, steps, 64)
+    pre, step = per(cfg32)
+    if not same_counts(counts[0], pre) or \
+            not all(same_counts(c, step) for c in counts[1:]):
+        fail(f"{cfg32.name} float32 launches {counts}: expected {pre} per "
+             f"prefill and {step} per decode step")
+    del p_cpu
+    period, bound = admission_period(tag, cfg32, p_dev)
+    say(f"[{tag}] float32 admission: modeled bound {bound * 1e3:.3f} ms, "
+        f"period {period * 1e3:g} ms")
+    out["f32_server_wall_s"] = f32_server_equals_oracle(
+        torch, tag, cfg32, p_dev, prompts, period, pre, step)
+    del p_dev
+    free(torch, out)
+
+    params, n_params = load_params(torch, tag, cfg16, cut16)
+    pre, step = per(cfg16)
+    period, bound = admission_period(tag, cfg16, params)
+    say(f"[{tag}] bf16 admission: modeled bound {bound * 1e3:.3f} ms, period "
+        f"{period * 1e3:g} ms")
+    srv, verdict, tickets, jobs, wall_s, counts, tele = serve_tickets(
+        torch, tag, cfg16, params, prompts, 32, period, pre, step)
+    n_tok = sum(len(t.result().output) for t in tickets)
+    none = "" if any(counts[k] for k in LM_KERNELS) else (
+        " (plain torch on the card: no kernel of the port on this path)")
+    say(f"[{tag}] Server bf16: 8 of 8 tickets done, 32 tokens each, in "
+        f"{jobs} jobs ({tele['prefills']} prefills, {tele['decode_steps']} "
+        f"decode steps, {wall_s:.2f} s, {n_tok / wall_s:.1f} tokens/s end "
+        f"to end); launches {counts}{none}")
+    streams = bf16_streams(torch, cfg16, params, prompts, tickets,
+                           oracle(cfg16, params, prompts, 32))
+    timing = step_timings(
+        torch, f"{cfg16.name} bf16", "batch-1 prefill of 128 tokens",
+        *backend_steps(srv._nets[tag].cengine.backend, prompts), pre, step)
+    out.update(params=n_params, period_s=period, bound_ms=bound * 1e3,
+               serve={"jobs": jobs, "wall_s": wall_s, "tokens": n_tok,
+                      "tokens_per_s": n_tok / wall_s, "launches": counts,
+                      "continuous": tele}, **streams, **timing)
+    del params, srv
+    free(torch, out)
+    return counts
+
+
+def rwkv_phase(torch, np, rng, report) -> dict:
+    """Phase 7. rwkv6-1.6B (the RWKV `ssm` family) at full width and depth
+    through `served_family`. The family launches no kernel (its WKV scan
+    is plain torch, as it is plain JAX in the JAX package): every count
+    stays 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out: dict = {"checks": []}
+    report["rwkv"] = out
+    cfg = get_config("rwkv6-1.6b")
+    zero = {k: 0 for k in LM_KERNELS}
+    say(f"[rwkv] rwkv6-1.6b at full width and depth: {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}")
+    counts = served_family(
+        torch, rng, "rwkv", out, dataclasses.replace(cfg, dtype="float32"),
+        cfg, rng.integers(1, cfg.vocab_size, (4, 32)), 4,
+        lambda c: (zero, zero))
+    phase_end(torch, "rwkv", t_phase, out)
+    return counts
+
+
+# mixtral-8x22b's depth cuts: 8 of 56 layers in bf16 for the served path,
+# 1 layer in float32 for the card-vs-CPU check (the 56 layers, 140.6e9
+# parameters, do not fit one 80 GB card)
+MIXTRAL_LAYERS_BF16, MIXTRAL_LAYERS_F32 = 8, 1
+
+
+def mixtral_phase(torch, np, rng, report) -> dict:
+    """Phase 8. mixtral-8x22b (the moe family) at full width, depth cut,
+    through `served_family`: 1 layer in float32 (routers compared before
+    logits), 8 layers in bf16; K4 once per layer in a prefill and never in
+    a decode step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    out: dict = {"checks": []}
+    report["mixtral"] = out
+    cfg = get_config("mixtral-8x22b")
+    say(f"[mixtral] mixtral-8x22b at full width: d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.hd}, "
+        f"{cfg.num_experts} experts of d_ff {cfg.d_ff}, top-{cfg.top_k}, "
+        f"dispatch {cfg.moe_dispatch}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}; depth cut to {MIXTRAL_LAYERS_BF16} of "
+        f"{cfg.num_layers} layers in bf16 and {MIXTRAL_LAYERS_F32} in "
+        f"float32 (all {cfg.num_layers}: {cfg.param_count() / 1e9:.1f} B "
+        f"params, {cfg.param_count() * 2 / 1e9:.0f} GB in bf16, more than "
+        f"one 80 GB card)")
+    counts = served_family(
+        torch, rng, "mixtral", out,
+        dataclasses.replace(cfg, num_layers=MIXTRAL_LAYERS_F32,
+                            dtype="float32"),
+        dataclasses.replace(cfg, num_layers=MIXTRAL_LAYERS_BF16),
+        rng.integers(1, cfg.vocab_size, (4, 16)), 2,
+        lambda c: ({"flash_attention": c.num_layers, "ssm_scan": 0},
+                   {"flash_attention": 0, "ssm_scan": 0}),
+        f", {MIXTRAL_LAYERS_F32} layer", f", {MIXTRAL_LAYERS_BF16} layers")
+    out["layers"] = MIXTRAL_LAYERS_BF16
+    phase_end(torch, "mixtral", t_phase, out)
+    return counts
+
+
+def seamless_phase(torch, np, rng, report) -> dict:
+    """Phase 9. seamless-m4t-medium (the encdec family) at full width and
+    depth: a float32 copy card against CPU, then bf16 through
+    `ServeEngine.serve`, K4 in every encoder, decoder and cross attention
+    of a prefill (36) and in every cross attention of a decode step (12).
+    Continuous batching and `PredictableEngine` refuse encdec in both
+    packages. Returns the bf16 run's launch counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import (decode_step, init_cache, params_to,
+                                    prefill_step)
+    from repro_torch.serve import PredictableEngine
+    from repro_torch.serve.continuous import LMBackend
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    out: dict = {"checks": []}
+    report["seamless"] = out
+    dev = torch.device("cuda")
+    cfg = get_config("seamless-m4t-medium")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    pre = {"flash_attention": cfg.enc_layers + 2 * cfg.dec_layers,
+           "ssm_scan": 0}
+    step = {"flash_attention": cfg.dec_layers, "ssm_scan": 0}
+    say(f"[seamless] seamless-m4t-medium at full width and depth: "
+        f"{cfg.enc_layers} + {cfg.dec_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+        f"untied; the encoder reads the prompt as src_tokens (the audio "
+        f"frontend is a stub)")
+
+    p_dev, _ = load_params(torch, "seamless", cfg32, " copy")
+    p_cpu = params_to(p_dev, "cpu")
+    counts = card_vs_cpu(torch, out, cfg32, p_dev, p_cpu,
+                         rng.integers(1, cfg.vocab_size, (4, 32)), 4, 64)
+    if not same_counts(counts[0], pre) or \
+            not all(same_counts(c, step) for c in counts[1:]):
+        fail(f"seamless float32 launches {counts}: expected {pre} per "
+             f"prefill and {step} per decode step")
+    del p_cpu, p_dev
+    free(torch, out)
+
+    params, n_params = load_params(torch, "seamless", cfg)
+    lens = rng.integers(16, 129, size=8)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+               for n in lens]
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=256)
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(reqs, prompt_len=128)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = _lib.launch_counts()
+    m = eng.metrics
+    if len(done) != 8 or any(len(r.out) != 16 or not r.done for r in done):
+        fail(f"seamless ServeEngine.serve: {[len(r.out) for r in done]} "
+             f"tokens")
+    want = kernel_counts(pre, step, m["prefills"], m["decode_steps"])
+    if not same_counts(counts, want):
+        fail(f"seamless serving launched {counts} for {m['prefills']} "
+             f"prefills and {m['decode_steps']} decode steps (expected "
+             f"{pre} per prefill, {step} per decode step)")
+    n_tok = sum(len(r.out) for r in done)
+    say(f"[seamless] ServeEngine.serve bf16: 8 of 8 requests done, 16 tokens "
+        f"each ({m['prefills']} prefills of 4 x 128, {m['decode_steps']} "
+        f"decode steps, {wall_s:.2f} s, {n_tok / wall_s:.1f} tokens/s end to "
+        f"end); launches {counts}")
+
+    padded = torch.tensor([[0] * (128 - len(p)) + p for p in prompts[:4]],
+                          device=dev)
+    batch = {"tokens": padded, "src_tokens": padded}
+    _, cache = prefill_step(cfg)(params, batch,
+                                 init_cache(cfg, 4, 256, enc_len=128,
+                                            device=dev))
+    tok = torch.tensor([[5], [6], [7], [8]], device=dev)
+    timing = step_timings(
+        torch, "seamless-m4t-medium bf16", "batch-4 prefill of 4 x 128",
+        lambda: prefill_step(cfg)(params, batch, init_cache(
+            cfg, 4, 256, enc_len=128, device=dev)),
+        lambda: decode_step(cfg)(params, cache, tok), pre, step)
+
+    try:
+        LMBackend(cfg, params, slots=4, prompt_len=128, max_len=256)
+        fail("continuous batching admitted encdec")
+    except NotImplementedError:
+        pass
+    try:
+        PredictableEngine(cfg, params, batch_size=4, max_len=256)
+        fail("PredictableEngine was built for encdec, which the JAX "
+             "package's analyze_decode refuses")
+    except ZeroDivisionError:
+        pass
+    say("[seamless] continuous batching refuses encdec (per-request encoder "
+        "state), and PredictableEngine cannot be built for it "
+        "(analyze_decode divides by num_layers, 0 for encdec), as in the "
+        "JAX package")
+    out.update(params=n_params,
+               serve={"wall_s": wall_s, "tokens": n_tok,
+                      "tokens_per_s": n_tok / wall_s, "launches": counts,
+                      "metrics": dict(m)}, **timing)
+    del params, cache, eng
+    free(torch, out)
+    phase_end(torch, "seamless", t_phase, out)
+    return counts
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1152,6 +1672,7 @@ def main() -> None:
 
     dev = torch.device("cuda")
     report: dict = {"checks": [], "paths": [], "serve": []}
+    clock = Clock()
 
     # -- 1. environment ------------------------------------------------------
     smi = subprocess.run(
@@ -1164,6 +1685,7 @@ def main() -> None:
         f"cuda {torch.version.cuda}; {nvcc.splitlines()[-1]}")
     say(f"[env] {smi}; {torch.cuda.device_count()} device(s)")
     report["card"] = smi
+    clock.lap("1 env")
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1192,6 +1714,7 @@ def main() -> None:
              "instruction")
     if sass["megakernel"]["IDP"]:
         fail("K3 still multiplies with dp4a")
+    clock.lap("2 build")
 
     rng = np.random.default_rng(SEED)
 
@@ -1424,6 +1947,8 @@ def main() -> None:
                    ("yolov5s-test", cnn.yolov5s_backbone(h=64, w=64,
                                                          width=0.25))]:
         fused_checks(tag, g, hw4, 4)
+
+    clock.lap("3 CNN kernels")
 
     # -- 4. main path: ResNet50-224 on scaled_paper_machine(64) --------------
     hw = scaled_paper_machine(64)
@@ -1665,6 +2190,8 @@ def main() -> None:
     else:
         say(f"[path] profiler confirms the launches: {seen}")
 
+    clock.lap("4 CNN path")
+
     # -- 5. serving -----------------------------------------------------------
     from repro_torch.serve import Server
     srv = Server(hw, backend="cuda", device="cuda")
@@ -1699,18 +2226,32 @@ def main() -> None:
         if serve_counts[k] == 0:
             fail(f"kernel {k} was not launched on the CNN serving path")
 
+    clock.lap("5 serve")
+
     # -- 5b. resilience: faults, retries, breakers on the card ---------------
     lane = resilience_phase(torch, np, hw, g, params, inputs[8], refs[8],
                             report)
+    clock.lap("5b resilience")
 
     # -- 5c. atomic mode changes on the card ---------------------------------
     modes_phase(torch, np, hw, g, params, inputs[8], refs[8], lane, report)
     rtdep = ROOT / "build" / "resnet50_224.rtdep"
     rtdep.parent.mkdir(exist_ok=True)
     dep.save(str(rtdep))
+    clock.lap("5c modes")
 
     # -- 6. LM: zamba2-1.2B through Server.register_decode ---------------------
-    lm_counts = lm_phase(torch, np, rng, kernels, report, smi, rtdep)
+    lm_counts = lm_phase(torch, np, rng, kernels, report, smi, rtdep, clock)
+    del dep, params, srv
+    free(torch)
+
+    # -- 7-9. the RWKV, moe and encdec families --------------------------------
+    family_counts = {}
+    for name, phase in (("7 rwkv6-1.6b", rwkv_phase),
+                        ("8 mixtral-8x22b", mixtral_phase),
+                        ("9 seamless-m4t-medium", seamless_phase)):
+        family_counts[name] = phase(torch, np, rng, report)
+        clock.lap(name)
 
     # -- result lines ---------------------------------------------------------
     where = {
@@ -1725,8 +2266,14 @@ def main() -> None:
         "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                      "src/repro/kernels/ssm_scan.py:53"),
     }
+    # an LM kernel's launches: its serving runs on the LM main paths
+    # (zamba2-1.2b, rwkv6-1.6b and mixtral-8x22b through the Server,
+    # seamless-m4t-medium through ServeEngine.serve), each counted around
+    # its own run
     launches = {**{k: serve_counts[k] for k in CNN_KERNELS},
-                **{k: lm_counts[k] for k in LM_KERNELS}}
+                **{k: lm_counts[k] + sum(c[k] for c in family_counts.values())
+                   for k in LM_KERNELS}}
+    report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts}
     line = {"kernels": []}
     for k in _lib.KERNELS:
         kd = kernels[k]
@@ -1740,7 +2287,9 @@ def main() -> None:
     report["kernels"] = line["kernels"]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
+    report["phases_s"] = clock.summary()
     (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    say("[phases] " + json.dumps(report["phases_s"]))
     print(json.dumps(line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,10 +28,17 @@
 //
 // Two kernels, by dtype:
 //
-// f16 and bf16 (flash_attention_kernel_tc): tensor cores. A block of two
-// warps owns 32 q rows (128 blocks at the path's shape on 132 SMs), one
-// warp per 16 rows. The head dim is zero-padded to DP = 16, 32, 64, 128 or
-// 256 in shared memory (k-steps and output tiles past D are skipped).
+// f16 and bf16 (flash_attention_kernel_tc): tensor cores. A block of four
+// warps owns 32 q rows (128 blocks at the path's shape on 132 SMs): two row
+// groups of 16 rows, each held by two warps, the kv lanes, that split every
+// kv tile in halves. Each lane keeps its own online softmax over its halves;
+// at the end lane 1 hands (m, l, acc) to lane 0 through shared memory, which
+// merges them (m = max of the two, each side rescaled by exp(m_side - m)).
+// The lanes halve the serial chain of dependent MMAs and exps a block walks
+// per tile, which is what bounds the small grids of the LM paths (a prefill
+// of 128 tokens, Sq = 1 in a decode step). The head dim is zero-padded to
+// DP = 16, 32, 64, 128 or 256 in shared memory (k-steps and output tiles
+// past D are skipped).
 //   - S = Q K^T with mma.sync.m16n8k16 (16-bit operands, f32 accumulators);
 //     the Q fragments are loaded once with ldmatrix and kept in registers
 //     for the whole kv loop (read from shared memory instead at DP = 256,
@@ -46,6 +53,8 @@
 //   - P is rounded to the input's type in registers and used directly as
 //     the A operand of P V (V read with ldmatrix.trans); l sums the f32 P.
 //     The TPU kernel's default-precision f32 dot also multiplies in bf16.
+//     P is relative to its lane's running max, so its rounding differs from
+//     one softmax over the whole tile by the same relative 2^-9 (bf16).
 //
 // f32 (flash_attention_kernel): CUDA cores, in f32 throughout. zamba2's
 // float32 correctness cell (card against CPU, and Server streams equal to
@@ -86,8 +95,10 @@ __device__ __forceinline__ bool visible(int kpos, int qpos, int Skv,
 
 // -- f16 / bf16 on the tensor cores -----------------------------------------
 
-constexpr int TC_WARPS = 2;            // warps per block, 16 q rows each
-constexpr int TC_BQ = 16 * TC_WARPS;   // q rows per block
+constexpr int TC_ROWS = 2;             // row groups per block, 16 q rows each
+constexpr int TC_LANES = 2;            // kv lanes: warps that split a tile
+constexpr int TC_WARPS = TC_ROWS * TC_LANES;
+constexpr int TC_BQ = 16 * TC_ROWS;    // q rows per block
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -195,10 +206,11 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
                           int Sq, int Skv, int D, int causal, int window,
                           float scale, int vec) {
   constexpr int BKV = DP <= 128 ? 64 : 32;   // kv rows per tile
+  constexpr int HB = BKV / TC_LANES;          // kv rows per lane per tile
   constexpr int LD = DP + 8;                  // row stride in elements
   constexpr bool QREG = DP <= 128;            // Q fragments in registers
   constexpr int KS = DP / 16;                 // k-steps of Q K^T
-  constexpr int NT = BKV / 8;                 // 8-column tiles of S
+  constexpr int NT = HB / 8;                  // 8-column tiles of S
   constexpr int DT = DP / 8;                  // 8-column tiles of acc
   extern __shared__ uint4 smem_tc[];
   uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_tc);   // TC_BQ x LD
@@ -206,6 +218,9 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
   uint16_t* Vs = Ks + 2 * BKV * LD;                      // 2 x BKV x LD
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // warp = kv lane * TC_ROWS + row group: the row group's 16 q rows
+  // against the lane's half of every kv tile
+  const int rg = warp % TC_ROWS, kl = warp / TC_ROWS;
   const int g = lane >> 2, tig = lane & 3;
   const int bh = blockIdx.y;
   const int b = bh / Hq;
@@ -234,7 +249,7 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
   cp_async_commit();
 
   // this thread's two rows: g and g + 8 of the warp's 16
-  const int qpos0 = i0 + warp * 16 + g + offs;
+  const int qpos0 = i0 + rg * 16 + g + offs;
   const int qpos[2] = {qpos0, qpos0 + 8};
   float acc[DT][4];
 #pragma unroll
@@ -243,7 +258,7 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
-  const uint32_t q_addr = smem_u32(Qs + (warp * 16 + (lane & 15)) * LD +
+  const uint32_t q_addr = smem_u32(Qs + (rg * 16 + (lane & 15)) * LD +
                                    (lane >> 4) * 8);
   uint32_t qf[QREG ? KS : 1][4];
   cp_async_wait_all();
@@ -270,8 +285,8 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
                                min(BKV, Skv - jn), D, vec);
     }
     cp_async_commit();
-    const uint16_t* Kt = Ks + st * BKV * LD;
-    const uint16_t* Vt = Vs + st * BKV * LD;
+    const uint16_t* Kt = Ks + (st * BKV + kl * HB) * LD;
+    const uint16_t* Vt = Vs + (st * BKV + kl * HB) * LD;
 
     // S = Q K^T
     float s[NT][4];
@@ -307,7 +322,7 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kpos = j0 + nt * 8 + 2 * tig + (e & 1);
+        const int kpos = j0 + kl * HB + nt * 8 + 2 * tig + (e & 1);
         const bool ok = visible(kpos, qpos[e >> 1], Skv, causal, window);
         s[nt][e] = ok ? s[nt][e] * sl2 : NEG;
         vis |= (ok ? 1u : 0u) << (nt * 4 + e);
@@ -340,7 +355,7 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
 
     // acc += P V, P rounded to T in registers as the A operand
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
+    for (int kk = 0; kk < HB / 16; ++kk) {
       const uint32_t a[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -359,15 +374,50 @@ flash_attention_kernel_tc(const uint16_t* __restrict__ q,
     }
   }
 
-  // l over the quad, then acc / max(l, 1e-30) in T
+  // l over the quad
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
+  // lane 1 hands its (m, l, acc) to lane 0 through the K buffer (every
+  // warp is done with it, and no copy is in flight into it), which merges
+  // the two online softmaxes: m = max(m0, m1), each side rescaled by
+  // exp(m_side - m)
+  cp_async_wait_all();
+  __syncthreads();
+  float* xs = reinterpret_cast<float*>(Ks) + (rg * 32 + lane) * (4 * DT + 4);
+  if (kl == 1) {
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[dt * 4 + e] = acc[dt][e];
+    xs[4 * DT] = m[0];
+    xs[4 * DT + 1] = m[1];
+    xs[4 * DT + 2] = l[0];
+    xs[4 * DT + 3] = l[1];
+  }
+  __syncthreads();
+  if (kl == 1) return;
+  float c0[2], c1[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = i0 + warp * 16 + g + 8 * h;
+    const float m1 = xs[4 * DT + h];
+    const float m_new = fmaxf(m[h], m1);
+    c0[h] = exp2f(m[h] - m_new);
+    c1[h] = exp2f(m1 - m_new);
+    l[h] = l[h] * c0[h] + xs[4 * DT + 2 + h] * c1[h];
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[dt][e] = acc[dt][e] * c0[e >> 1] + xs[dt * 4 + e] * c1[e >> 1];
+
+  // acc / max(l, 1e-30) in T
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = i0 + rg * 16 + g + 8 * h;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
     uint16_t* orow = out + ((size_t)bh * Sq + row) * D;

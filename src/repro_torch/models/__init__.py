@@ -1,7 +1,10 @@
-"""LM model zoo of the port: the dense and hybrid families, in torch.
+"""LM model zoo of the port: the dense, moe, hybrid, RWKV (`ssm`) and
+encdec families, in torch.
 
 `params_from_numpy` carries the JAX package's parameters across (each leaf
-converted with `np.asarray` on that side), keeping dtypes."""
+converted with `np.asarray` on that side), keeping dtypes: the moe router,
+the RWKV decay bias and bonus `u` and the Mamba2 scalars stay float32 in a
+bf16 model, as `init_params` makes them on both sides."""
 
 from __future__ import annotations
 
@@ -10,7 +13,8 @@ import torch
 
 from .config import ModelConfig
 from .serve import cache_spec, decode_step, init_cache, prefill_step
-from .transformer import forward_hidden, init_params
+from .transformer import (chunked_xent, decode_trunk, encode, forward_hidden,
+                          init_params, train_loss)
 
 
 def _leaf_from_numpy(arr, device) -> torch.Tensor:
@@ -43,5 +47,7 @@ def params_to(params, device):
                 else v.to(device)) for k, v in params.items()}
 
 
-__all__ = ["ModelConfig", "init_params", "forward_hidden", "prefill_step",
-           "decode_step", "init_cache", "cache_spec", "params_from_numpy", "params_to"]
+__all__ = ["ModelConfig", "init_params", "forward_hidden", "encode",
+           "decode_trunk", "prefill_step", "decode_step", "init_cache",
+           "cache_spec", "train_loss", "chunked_xent", "params_from_numpy",
+           "params_to"]

@@ -1,6 +1,5 @@
 """Serving paths: prefill (fill KV/state caches, return last-token logits)
-and decode (one token against a fixed-size cache) for the dense and hybrid
-families.
+and decode (one token against a fixed-size cache) for every family.
 
 Caches are the JAX package's: stacked on the layer dim, with a fixed
 `max_len`, so a decode step has static shapes (the property the paper's
@@ -8,7 +7,13 @@ static scheduling requires; `repro_torch.core` computes WCET bounds for
 exactly this step). The hybrid family runs in groups of `attn_every`
 Mamba2 layers plus one application of the shared attention block, whose
 KV cache has one slab per application, then the tail of
-`num_layers % attn_every` Mamba2 layers.
+`num_layers % attn_every` Mamba2 layers. The moe family shares the dense
+family's attention and caches (the int8 KV cache included), with the
+routed experts in place of the MLP. The RWKV family (`ssm`) keeps a float32
+WKV state and the last token of each mix per layer. The encdec family
+encodes `batch["src_tokens"]` at prefill and keeps each decoder layer's
+cross-attention keys and values (`xk`, `xv`, of length `enc_len`) beside
+its self-attention cache.
 
 Per-row positions: `cache["pos"]` is a scalar (every row at one position,
 as after `prefill_step`) or a `(B,)` tensor (continuous batching, each
@@ -28,9 +33,10 @@ from .attention import (attn_out, attend, decode_attend, decode_attend_int8,
                         qkv_proj, quantize_kv)
 from .config import ModelConfig
 from .layers import embed_apply, make_norm, mlp_apply
+from .moe import moe_apply
 from .ssm import ssm_apply
-from .transformer import (_embed_with_frontend, _unembed_weight,
-                          check_family, layer)
+from .transformer import (_dec_block, _embed_with_frontend, _rwkv_block,
+                          _unembed_weight, check_family, encode, layer)
 
 
 def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -46,7 +52,7 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
     check_family(cfg)
     dt = cfg.torch_dtype
     L, Hkv, hd, D = cfg.num_layers, cfg.num_kv_heads, cfg.hd, cfg.d_model
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         if cfg.kv_cache_dtype == "int8":
             return {"k": ((L, batch, Hkv, max_len, hd), torch.int8),
                     "v": ((L, batch, Hkv, max_len, hd), torch.int8),
@@ -55,6 +61,20 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
                     "pos": ((), torch.int32)}
         return {"k": ((L, batch, Hkv, max_len, hd), dt),
                 "v": ((L, batch, Hkv, max_len, hd), dt),
+                "pos": ((), torch.int32)}
+    if cfg.family == "ssm":
+        H = cfg.num_heads if cfg.num_heads > 0 else D // 64
+        dk = D // H
+        return {"wkv": ((L, batch, H, dk, dk), torch.float32),
+                "last_tm": ((L, batch, 1, D), dt),
+                "last_cm": ((L, batch, 1, D), dt),
+                "pos": ((), torch.int32)}
+    if cfg.family == "encdec":
+        Ld = cfg.dec_layers
+        return {"k": ((Ld, batch, Hkv, max_len, hd), dt),
+                "v": ((Ld, batch, Hkv, max_len, hd), dt),
+                "xk": ((Ld, batch, Hkv, enc_len, hd), dt),
+                "xv": ((Ld, batch, Hkv, enc_len, hd), dt),
                 "pos": ((), torch.int32)}
     Din, N = 2 * D, cfg.ssm_state
     _, napp, _ = _hybrid_groups(cfg)
@@ -86,6 +106,27 @@ def _place(cache_slab, fresh):
     return out
 
 
+def _rwkv_cache(states, pos, dt) -> dict:
+    """The RWKV cache from each layer's (WKV state, last_tm, last_cm)."""
+    wkv, ltm, lcm = zip(*states)
+    return {"wkv": torch.stack(wkv),
+            "last_tm": torch.stack(ltm).to(dt),
+            "last_cm": torch.stack(lcm).to(dt), "pos": pos}
+
+
+def _ffn(cfg: ModelConfig, pl_, h):
+    """The second half of a dense or moe layer: norm, then the MLP or the
+    routed experts (plus arctic's always-on dense MLP)."""
+    _, norm = make_norm(cfg.norm)
+    z = norm(pl_["ln2"], h, cfg.norm_eps)
+    if cfg.family == "dense":
+        return h + mlp_apply(pl_["mlp"], z, cfg.act)
+    y, _ = moe_apply(pl_["moe"], z, cfg)
+    if cfg.dense_residual_ff:
+        y = y + mlp_apply(pl_["dense_mlp"], z, cfg.act)
+    return h + y
+
+
 # -- prefill ----------------------------------------------------------------------
 
 def prefill_step(cfg: ModelConfig):
@@ -100,7 +141,7 @@ def prefill_step(cfg: ModelConfig):
         positions = torch.arange(S, device=tokens.device)
         pos = torch.tensor(S - 1, dtype=torch.int32, device=tokens.device)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             x = _embed_with_frontend(cfg, params, batch)
             ks, vs = [], []
             for i in range(cfg.num_layers):
@@ -109,8 +150,7 @@ def prefill_step(cfg: ModelConfig):
                 q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
                 o = attend(q, k, v, causal=True, window=cfg.sliding_window)
                 x = x + attn_out(pl_["attn"], o, cfg)
-                z = norm(pl_["ln2"], x, cfg.norm_eps)
-                x = x + mlp_apply(pl_["mlp"], z, cfg.act)
+                x = _ffn(cfg, pl_, x)
                 ks.append(k)
                 vs.append(v)
             k_all, v_all = torch.stack(ks), torch.stack(vs)
@@ -126,6 +166,38 @@ def prefill_step(cfg: ModelConfig):
                 new_cache = {"k": _place(cache["k"], k_all.to(dt)),
                              "v": _place(cache["v"], v_all.to(dt)),
                              "pos": pos}
+            return _last_logits(cfg, params, x), new_cache
+
+        if cfg.family == "ssm":
+            x = embed_apply(params["embed"], tokens)
+            states = []
+            for i in range(cfg.num_layers):
+                x, st = _rwkv_block(layer(params["layers"], i), x, cfg)
+                states.append(st)
+            return _last_logits(cfg, params, x), _rwkv_cache(states, pos, dt)
+
+        if cfg.family == "encdec":
+            src = batch["src_tokens"]
+            x_enc = embed_apply(params["embed"], src)
+            if cfg.frontend is not None and "frontend_embeds" in batch:
+                fe = batch["frontend_embeds"].to(x_enc.dtype)
+                x_enc = torch.cat([fe, x_enc[:, fe.shape[1]:]], dim=1)
+            enc_pos = torch.arange(src.shape[1], device=src.device)
+            enc_out = encode(cfg, params, x_enc, enc_pos)
+            x = embed_apply(params["embed"], tokens)
+            ks, vs, kxs, vxs = [], [], [], []
+            for i in range(cfg.dec_layers):
+                x, (k, v, kx, vx) = _dec_block(
+                    layer(params["dec_layers"], i), x, enc_out, cfg,
+                    positions, enc_pos)
+                ks.append(k.to(dt))
+                vs.append(v.to(dt))
+                kxs.append(kx.to(dt))
+                vxs.append(vx.to(dt))
+            new_cache = {"k": _place(cache["k"], torch.stack(ks)),
+                         "v": _place(cache["v"], torch.stack(vs)),
+                         "xk": torch.stack(kxs), "xv": torch.stack(vxs),
+                         "pos": pos}
             return _last_logits(cfg, params, x), new_cache
 
         x = embed_apply(params["embed"], tokens)
@@ -207,13 +279,24 @@ def decode_step(cfg: ModelConfig):
     def fn(params, cache, tokens):
         B = tokens.shape[0]
         pos = (cache["pos"] + 1).to(torch.int32)
+        x = embed_apply(params["embed"], tokens)
+
+        if cfg.family == "ssm":
+            states = []
+            for i in range(cfg.num_layers):
+                x, st = _rwkv_block(layer(params["layers"], i), x, cfg,
+                                    cache["wkv"][i], cache["last_tm"][i],
+                                    cache["last_cm"][i])
+                states.append(st)
+            return _last_logits(cfg, params, x), \
+                _rwkv_cache(states, pos, cache["last_tm"].dtype)
+
         # the cache write index: per row, clamped into the cache like the
         # start index of jax.lax.dynamic_update_slice
         smax = cache["k"].shape[3]
         idx = torch.clamp(pos.reshape(-1), 0, smax - 1).expand(B)
-        x = embed_apply(params["embed"], tokens)
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             new = {k: v.clone() for k, v in cache.items() if k != "pos"}
             for i in range(cfg.num_layers):
                 pl_ = layer(params["layers"], i)
@@ -224,9 +307,24 @@ def decode_step(cfg: ModelConfig):
                 else:
                     x = _attn_step(pl_, x, new["k"][i], new["v"][i], pos, idx,
                                    cfg.sliding_window)
+                x = _ffn(cfg, pl_, x)
+            return _last_logits(cfg, params, x), {**new, "pos": pos}
+
+        if cfg.family == "encdec":
+            k_new, v_new = cache["k"].clone(), cache["v"].clone()
+            for i in range(cfg.dec_layers):
+                pl_ = layer(params["dec_layers"], i)
+                x = _attn_step(pl_, x, k_new[i], v_new[i], pos, idx, None)
+                z = norm(pl_["lnx"], x, cfg.norm_eps)
+                qx, _, _ = qkv_proj(pl_["xattn"], z, cfg,
+                                    pos.reshape(-1, 1, 1))
+                ox = attend(qx, cache["xk"][i], cache["xv"][i], causal=False)
+                x = x + attn_out(pl_["xattn"], ox, cfg)
                 z = norm(pl_["ln2"], x, cfg.norm_eps)
                 x = x + mlp_apply(pl_["mlp"], z, cfg.act)
-            return _last_logits(cfg, params, x), {**new, "pos": pos}
+            return _last_logits(cfg, params, x), \
+                {"k": k_new, "v": v_new, "xk": cache["xk"],
+                 "xv": cache["xv"], "pos": pos}
 
         shared = params["shared_attn"]
         period, G, R = _hybrid_groups(cfg)

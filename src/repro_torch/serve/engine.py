@@ -149,6 +149,9 @@ class ServeEngine:
         cache = init_cache(self.cfg, self.B, self.max_len, enc_len=S,
                            device=self.device)
         batch = {"tokens": torch.as_tensor(prompts, device=self.device)}
+        if self.cfg.family == "encdec":
+            # the encoder reads the prompt too (the audio frontend is a stub)
+            batch["src_tokens"] = batch["tokens"]
         logits, cache = self._prefill(self.params, batch, cache)
         self.metrics["prefills"] += 1
 
