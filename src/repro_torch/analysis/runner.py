@@ -19,12 +19,6 @@ from .lifetime import analyze_program, analyze_subtasks
 from .schedule_rules import analyze_schedule, dma_exclusivity
 from .wcet_rules import analyze_taskset_report, analyze_wcet
 
-# the manifest a saved cluster directory carries (the JAX package's
-# `cluster/fleet.py::CLUSTER_MANIFEST`; `repro_torch.cluster` waits for its
-# port, ROADMAP.md, queue 1, item 13)
-CLUSTER_MANIFEST = "cluster.json"
-
-
 def deployment_diagnostics(dep: Any) -> list[Diagnostic]:
     """Every rule family over one single-network deployment."""
     diags: list[Diagnostic] = []
@@ -159,15 +153,44 @@ def analyze_bundle(
 
 def is_cluster_artifact(dirpath: str) -> bool:
     """True when `dirpath` is a `ClusterServer.save` layout (a cluster
-    manifest next to a replica bundle). Linting one raises in
-    `analyze_cluster` until the cluster is ported."""
+    manifest next to a replica bundle)."""
+    from ..cluster.fleet import CLUSTER_MANIFEST
+
     return os.path.isfile(os.path.join(dirpath, CLUSTER_MANIFEST))
 
 
 def analyze_cluster(
     dirpath: str, *, suppress: tuple = ()
 ) -> list[AnalysisReport]:
-    """Cluster artifacts (`ClusterServer.save`) are not ported yet."""
-    raise NotImplementedError(
-        "cluster artifacts wait for the port of repro.cluster "
-        "(ROADMAP.md, queue 1, item 13)")
+    """Lint a cluster artifact: every member of the (shared) replica
+    bundle, one subject per member.
+
+    Replicas are identical by construction (`ClusterServer.save` persists
+    one bundle plus a manifest), so linting the bundle once covers the
+    whole fleet; the manifest itself is validated for shape here so a
+    corrupt cluster directory fails with exit 2 like any unreadable
+    artifact."""
+    import json
+
+    from ..cluster.fleet import CLUSTER_MANIFEST, REPLICA_BUNDLE
+
+    manifest_path = os.path.join(dirpath, CLUSTER_MANIFEST)
+    with open(manifest_path) as f:
+        manifest = json.load(f)
+    if manifest.get("kind") != "cluster":
+        raise ValueError(
+            f"{manifest_path}: manifest kind "
+            f"{manifest.get('kind')!r} != 'cluster'"
+        )
+    replicas = int(manifest.get("replicas", 0))
+    if replicas < 1:
+        raise ValueError(
+            f"{manifest_path}: replica count {replicas} < 1"
+        )
+    bundle = os.path.join(dirpath, REPLICA_BUNDLE)
+    if not os.path.isdir(bundle):
+        raise ValueError(
+            f"{dirpath}: cluster manifest present but replica bundle "
+            f"{REPLICA_BUNDLE!r} is missing"
+        )
+    return analyze_bundle(bundle, suppress=suppress)

@@ -37,6 +37,9 @@ Built-in backends (see repro_torch/core/compiled.py for their numerics):
     program, requant fused in epilogues, scratchpad-budgeted segments.
     ``megakernel=False`` in the options selects the per-op kernel path. On
     a CPU device every kernel wrapper takes its plain version.
+  * ``mesh``  — the program sharded over a `torch.distributed` mesh
+    (`repro_torch.cluster.mesh`): each rank runs its core block's tiles on
+    K6 and all-reduces them; needs a machine with a mesh shape.
 
 Factories take ``(prog, options, device)``; a factory with only
 ``(prog, options)`` runs on whatever device its own code picks, and the
@@ -126,8 +129,7 @@ class BackendCapabilities:
         explicitly-set fields outside this set fail validation.
     mesh — executes across a device mesh: requires (and is required
         by) a machine whose `HardwareModel.mesh_shape` is set —
-        `repro_torch.compile` enforces the pairing both ways. (No mesh
-        backend is ported yet.)
+        `repro_torch.compile` enforces the pairing both ways.
     """
 
     supports_batched_native: bool = False
@@ -185,9 +187,8 @@ class Backend:
         if mesh_shape is not None and not self.capabilities.mesh:
             raise BackendError(
                 f"machine {machine.name!r} targets mesh shape {mesh_shape} "
-                f"but backend {self.name!r} is single-device (the mesh "
-                f"backend is not ported yet); use a machine without a "
-                f"mesh shape")
+                f"but backend {self.name!r} is single-device; use "
+                f'backend="mesh" (or a machine without a mesh shape)')
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -340,6 +341,16 @@ def _cuda_factory(batched: bool):
     return factory
 
 
+def _mesh_factory(batched: bool):
+    def factory(prog: _C.CompiledProgram,
+                options: BackendOptions | None = None,
+                device="cuda") -> Runner:
+        from ..cluster.mesh import mesh_batched_runner, mesh_single_runner
+        make = mesh_batched_runner if batched else mesh_single_runner
+        return make(prog, device)
+    return factory
+
+
 register_backend("numpy", single=_numpy_single,
                  capabilities=BackendCapabilities())
 register_backend("torch", single=_torch_factory(False),
@@ -354,3 +365,8 @@ register_backend("cuda", single=_cuda_factory(False),
                      supported_options=frozenset(
                          {"megakernel", "scratchpad_budget",
                           "max_kernels"})))
+register_backend("mesh", single=_mesh_factory(False),
+                 batched=_mesh_factory(True),
+                 capabilities=BackendCapabilities(
+                     supports_batched_native=True, supports_decode=True,
+                     requires_device="cuda", mesh=True))

@@ -29,7 +29,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("gemm_int8", "conv2d_im2col", "megakernel", "flash_attention",
-           "ssm_scan")
+           "ssm_scan", "tiled_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -37,7 +37,7 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 KERNELS = ("gemm_int8", "conv2d_int8", "megakernel", "flash_attention",
-           "ssm_scan")
+           "ssm_scan", "tiled_int8")
 _COUNTS = {k: 0 for k in KERNELS}
 
 
@@ -124,6 +124,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I,
                                    P],
         "ssm_scan_launch": [P, P, P, P, I, I, L, P],
+        "tiled_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
     }
     for name, args in table.items():
         fn = getattr(lib, name, None)

@@ -1,0 +1,132 @@
+"""Host meshes over `torch.distributed`.
+
+The JAX package builds a `jax.sharding.Mesh` over the devices one
+controller sees. Torch runs one process per rank (every rank runs the same
+program, JAX's multi-controller model), so a mesh here is this rank's place
+in the (pod, data, model) grid and the process groups of its data and model
+axes. Nothing touches `torch.distributed` at import time.
+
+The device count is the world size of the default process group, or 1 when
+no group is initialized (the counterpart of `len(jax.devices())`). A mesh
+smaller than the world is repeated: rank r belongs to mesh copy
+r // (pod * data * model), and every copy computes the same values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+_LOCK = threading.Lock()
+_MESHES: dict[tuple, tuple] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class HostMesh:
+    """This rank's coordinates in a (pod,) data x model grid, and the
+    process groups of its data and model axes (None when no process group
+    is initialized: a one-rank mesh, whose collectives are skipped; with a
+    group, they run even on axes of size 1)."""
+
+    shape: dict                    # {"pod": p,} "data": d, "model": m
+    rank: int
+    world: int
+    data_index: int
+    model_index: int
+    data_group: object = None
+    model_group: object = None
+
+    @property
+    def size(self) -> int:
+        """Ranks in one copy of the mesh (the product of the axes)."""
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    @property
+    def distributed(self) -> bool:
+        """True when a process group is initialized: the collectives run
+        (through its backend) even on axes of size 1."""
+        return self.model_group is not None
+
+
+def _initialized() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _world_size() -> int:
+    """World size of the default process group, or 1 without one."""
+    if _initialized():
+        import torch.distributed as dist
+        return dist.get_world_size()
+    return 1
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> HostMesh:
+    """Small mesh over however many ranks the default process group has.
+
+    The axis product must divide the rank count: a 3-rank mesh on an
+    8-rank world would strand ranks, which downstream code then mistakes
+    for full sharding. Raises `ValueError` naming the axis sizes and the
+    rank count when `data * model * pod` does not divide it.
+
+    Every rank of the world must call this with the same axes, in the same
+    order as its other group creations (`dist.new_group` is collective).
+    Meshes are cached per (axes, world), so later calls create no group.
+    """
+    if data < 1 or model < 1 or pod < 0:
+        raise ValueError(
+            f"mesh axis sizes must be positive (pod >= 0), got "
+            f"data={data} model={model} pod={pod}")
+    n_devices = _world_size()
+    product = data * model * (pod or 1)
+    if n_devices % product != 0:
+        axes_s = (f"pod={pod} data={data} model={model}" if pod
+                  else f"data={data} model={model}")
+        raise ValueError(
+            f"mesh shape {axes_s} (= {product} devices) does not divide "
+            f"the {n_devices} available device(s); pick axis sizes whose "
+            f"product divides the device count")
+    shape = ({"pod": pod} if pod else {}) | {"data": data, "model": model}
+    if not _initialized():
+        return HostMesh(shape=shape, rank=0, world=1, data_index=0,
+                        model_index=0)
+    import torch.distributed as dist
+    world = dist.group.WORLD
+    key = (pod, data, model, id(world))
+    with _LOCK:
+        hit = _MESHES.get(key)
+        # the entry keeps its default group alive, so its id() is not
+        # recycled by a later `init_process_group`
+        if hit is None or hit[0] is not world:
+            hit = _MESHES[key] = (world, _build(
+                shape, data, model, product, n_devices, dist.get_rank()))
+    return hit[1]
+
+
+def _build(shape: dict, data: int, model: int, product: int, world: int,
+           rank: int) -> HostMesh:
+    """Create every group of every mesh copy (all ranks, same order) and
+    keep this rank's two. Layout per copy: model fastest, then data, then
+    pod, as `jax.make_mesh` orders the devices."""
+    import torch.distributed as dist
+    mine_data = mine_model = None
+    for base in range(0, world, product):
+        for p in range(product // (data * model)):
+            off = base + p * data * model
+            for d in range(data):
+                ranks = [off + d * model + m for m in range(model)]
+                grp = dist.new_group(ranks)
+                if rank in ranks:
+                    mine_model = grp
+            for m in range(model):
+                ranks = [off + d * model + m for d in range(data)]
+                grp = dist.new_group(ranks)
+                if rank in ranks:
+                    mine_data = grp
+    local = rank % (data * model)
+    return HostMesh(shape=shape, rank=rank, world=world,
+                    data_index=local // model, model_index=local % model,
+                    data_group=mine_data, model_group=mine_model)

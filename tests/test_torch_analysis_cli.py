@@ -119,11 +119,11 @@ def test_cli_list_rules(capsys):
 
 def test_cli_cluster_artifact_waits_for_the_cluster_port(tmp_path):
     """A directory with a cluster manifest is recognised as the JAX
-    package recognises it; linting it raises, naming its ROADMAP item
-    (the CLI does not catch it)."""
+    package recognises it. The cluster is ported (`repro_torch.cluster`):
+    a manifest that is not a cluster's is an unreadable artifact, exit 2
+    in both CLIs (tests/test_torch_cluster.py lints real ones)."""
     from repro_torch.analysis.runner import is_cluster_artifact
     assert not is_cluster_artifact(str(tmp_path))
     (tmp_path / "cluster.json").write_text("{}")
     assert is_cluster_artifact(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmain([str(tmp_path)])
+    assert tmain([str(tmp_path)]) == jmain([str(tmp_path)]) == 2

@@ -163,7 +163,8 @@ def test_load_refuses_wrong_machine_graph_and_corrupt_files(tmp_path):
 
 
 def test_options_and_capabilities():
-    assert list_backends() == ["cuda", "numpy", "torch"]
+    assert list_backends() == ["cuda", "mesh", "numpy", "torch"]
+    assert get_backend("mesh").capabilities.mesh
     caps = get_backend("cuda").capabilities
     assert caps.requires_device == "cuda"
     assert caps.supported_options == frozenset(

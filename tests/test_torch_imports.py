@@ -65,7 +65,10 @@ def test_port_imports_without_jax_or_repro():
               "repro_torch.models.rope", "repro_torch.models.attention",
               "repro_torch.models.ssm", "repro_torch.models.transformer",
               "repro_torch.models.serve", "repro_torch.serve.engine",
-              "repro_torch.serve.continuous"):
+              "repro_torch.serve.continuous", "repro_torch.cluster",
+              "repro_torch.cluster.mesh", "repro_torch.cluster.fleet",
+              "repro_torch.cluster.router", "repro_torch.launch.mesh",
+              "repro_torch.kernels.tiled_int8"):
         assert m in info["mods"]
 
 

@@ -137,10 +137,12 @@ def test_admission_reject_is_atomic():
 
 def test_waiting_paths_raise_not_implemented(tmp_path):
     """What still waits for its port raises, naming its ROADMAP item:
-    cluster artifacts (item 13) and training recovery (item 15). A
-    non-config network is a TypeError. (Resilience and mode changes are
-    ported: tests/test_torch_resilience.py; LM networks and
+    training recovery (item 15). A non-config network is a TypeError.
+    (Cluster artifacts are ported: a directory without a manifest is
+    unreadable in both packages, tests/test_torch_cluster.py. Resilience
+    and mode changes: tests/test_torch_resilience.py; LM networks and
     `register_decode`: tests/test_torch_continuous.py.)"""
+    from repro.analysis.runner import analyze_cluster as r_analyze_cluster
     from repro_torch.analysis.runner import analyze_cluster
     from repro_torch.train import fault
     srv = TS.Server(TH.scaled_paper_machine(4), backend="torch",
@@ -152,8 +154,9 @@ def test_waiting_paths_raise_not_implemented(tmp_path):
     with pytest.raises(TypeError, match="ModelConfig"):
         srv.register("lm", Cfg(), period_s=0.1)
     assert srv.networks == []
-    with pytest.raises(NotImplementedError, match="item 13"):
-        analyze_cluster(str(tmp_path))
+    for fn in (r_analyze_cluster, analyze_cluster):
+        with pytest.raises(FileNotFoundError, match="cluster.json"):
+            fn(str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 15"):
         fault.run_with_recovery(lambda s, i: s, None, 1, None)
     with pytest.raises(NotImplementedError, match="item 15"):
