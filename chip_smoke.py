@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
   2. build: the CUDA kernels from src/repro_torch/csrc (one nvcc each, in
      parallel, for sm_90a), and the tensor-core instructions in their SASS
-     (cuobjdump: HMMA in K4's 16-bit kernels, IMMA in K1, K2, K3 and K6,
-     and no dp4a left in K3);
+     (cuobjdump: HMMA in K4's 16-bit kernels, IMMA in K1, K2 and K3,
+     IGMMA (int8 wgmma) and UTMALDG (TMA loads) in K6, and no dp4a left
+     in K3);
   3. kernels: K1 (int8 GEMM: split-K skinny route at M <= 16, the int8
      tensor-core tile above), K2 (implicit-im2col int8 conv on the int8
      tensor cores, split over K inside its launch) and K3 (the
@@ -86,7 +87,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      backend (24 tickets, one replica shed for the last 8) and one on
      the 1 x 1 mesh, every ticket done and bit-exact, saved and linted by
      `python -m repro_torch.analysis`; the mesh program's latency beside
-     the megakernel's, and K6 summed over a program beside its bound.
+     the megakernel's, and K6 at each of the program's 54 tiled ops at
+     batch 1 and 8 (int32-equal to its plain version, a `[K6 table]`
+     line per op class with the kernel's, the bound's and torch._int_mm's
+     times), summed over the program beside its bound, and the host's
+     time to issue K6 over a program (`[K6 host]`: the wrapper, its plan
+     lookup, its library call).
 
 Each LM phase takes its admission period from the modeled bound it
 prints, and prints its seconds and peak device memory. Then a `[phases]`
@@ -99,6 +105,7 @@ directory. Weights and inputs are random, from seeds.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -120,6 +127,9 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+# the SASS opcodes counted in the built libraries
+SASS_OPS = ("HMMA", "IMMA", "IGMMA", "IDP", "UTMALDG")
 
 # the kernels each main path must launch (counts read around that path)
 CNN_KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
@@ -249,9 +259,9 @@ def expect_equal(torch, name: str, got, want) -> int:
 
 
 def sass_counts(out_dir: Path) -> dict:
-    """HMMA / IMMA / IDP (dp4a) instructions in the built K4, K2, K1, K3
-    and K6 libraries: their counts and the distinct forms (opcode with its
-    modifiers)."""
+    """HMMA / IMMA / IGMMA (int8 wgmma) / IDP (dp4a) / UTMALDG (TMA load)
+    instructions in the built K4, K2, K1, K3 and K6 libraries: their
+    counts and the distinct forms (opcode with its modifiers)."""
     from repro_torch.kernels import _lib
     tool = Path(_lib._nvcc()).parent / "cuobjdump"
     counts = {}
@@ -262,7 +272,7 @@ def sass_counts(out_dir: Path) -> dict:
                               capture_output=True, text=True,
                               check=True).stdout
         counts[src] = {}
-        for op in ("HMMA", "IMMA", "IDP"):
+        for op in SASS_OPS:
             found = re.findall(rf"\s({op}(?:\.\w+)*)\s", text)
             counts[src][op] = len(found)
             counts[src][f"{op} forms"] = sorted(set(found))
@@ -1812,73 +1822,178 @@ def _partial_shape(C, b) -> tuple:
     return (1, oh * ow, a["C_out"])
 
 
+def k6_class(b, M, N, K) -> str:
+    """An op's class in the `[K6 table]`: kind, kernel and (M, N, K) at
+    batch 1 (strides merged: a stride-2 3x3 conv to 7 x 7 joins the 7 x 7
+    3x3 convs)."""
+    if b.kind == "gemm":
+        return f"gemm {M}x{N}x{K}"
+    a = b.attrs
+    return f"{a['kh']}x{a['kw']} conv {M}x{N}x{K}"
+
+
 def k6_timings(torch, np, C, prog, tables, i8, kernels) -> dict:
-    """K6 over one batch-1 program (the 1 x 1 table of every tiled op):
-    kernel, plain and torch._int_mm times summed, with the bound."""
+    """K6 at every tiled op of a program (the 1 x 1 table of each), at
+    batch 1 and 8: int32-equal to its plain version, with the kernel's
+    and torch._int_mm's times and the bound per op; the plain version's
+    time at batch 1. Prints a `[K6 table]` line per op class and batch.
+    Returns batch 1's sums over the program (the JSON line's numbers),
+    batch 8's, and the rows. K6 runs as the mesh path runs it, on the
+    weights prepared once."""
     from repro_torch.kernels import ref as kref
-    from repro_torch.kernels.tiled_int8 import tiled_int8, tiled_int8_plain
+    from repro_torch.kernels.tiled_int8 import (prepare_weights, tiled_int8,
+                                                tiled_int8_plain)
     dev = torch.device("cuda")
     consts = C.device_consts(prog, dev)
-    bound = Bound()
-    ms = pms = lib = ms_lib = 0.0
+    rows: list = []
     refused: list = []
+    bounds = {1: Bound(), 8: Bound()}
     for b in prog.batches:
         if b.kind not in ("gemm", "conv2d"):
             continue
         a = b.attrs
         tiles, mask = tables[b.op_idx]
         w = consts.weights[b.w_idx]
+        wt = prepare_weights(w)
         if b.kind == "gemm":
-            x = i8(1, a["M"], 1, a["K"])
-            geo = {}
             M, K, N = a["M"], a["K"], a["N"]
+            geo = {}
         else:
-            x = i8(1, a["H"], a["W"], a["C_in"])
             geo = dict(kh=a["kh"], kw=a["kw"], stride=a["stride"],
                        padding=a["padding"])
             oh, ow = C.conv_out_hw(a)
             M, K, N = oh * ow, a["kh"] * a["kw"] * a["C_in"], a["C_out"]
-        got = tiled_int8(x, w, tiles, mask, **geo)
-        err = expect_equal(torch, f"K6 {b.name}", got,
-                           tiled_int8_plain(x, w, tiles, mask, **geo))
-        kernels["tiled_int8"]["max_abs_err"] = max(
-            kernels["tiled_int8"]["max_abs_err"], err)
-        ms_op = graph_ms(torch, lambda: tiled_int8(x, w, tiles, mask, **geo))
-        ms += ms_op
-        pms += graph_ms(torch,
-                        lambda: tiled_int8_plain(x, w, tiles, mask, **geo))
-        # torch._int_mm on the im2col matrix, padded to its limits (M > 16,
-        # K and N multiples of 8; cuBLASLt refused M = 3032 at K = 64, so M
-        # is padded to a multiple of 32); the im2col itself is not timed
-        cols = kref.im2col_patches(x, geo.get("kh", 1), geo.get("kw", 1),
-                                   geo.get("stride", 1),
-                                   geo.get("padding", 0))[0]
-        Mp, Kp, Np = -(-M // 32) * 32, -(-K // 8) * 8, -(-N // 8) * 8
-        xp = torch.zeros(Mp, Kp, dtype=torch.int8, device=dev)
-        wp = torch.zeros(Kp, Np, dtype=torch.int8, device=dev)
-        xp[:M, :K], wp[:K, :N] = cols, w
-        try:
-            ref = torch._int_mm(xp, wp)
-        except RuntimeError as e:    # cuBLASLt refuses some int8 shapes
-            refused.append(f"{b.name} ({Mp}x{Kp}x{Np}: "
-                           f"{str(e).splitlines()[0][:120]})")
-        else:
-            if not torch.equal(ref[:M, :N], got[0]):
-                fail(f"torch._int_mm disagrees with K6 at {b.name}")
-            lib += graph_ms(torch, lambda: torch._int_mm(xp, wp))
-            ms_lib += ms_op
         live = tiles[mask]
         area = int(((live[:, 1] - live[:, 0])
                     * (live[:, 3] - live[:, 2])).sum())
-        bound.add(x.numel() + w.numel() + 4 * M * N, 2 * area * K)
+        for B in (1, 8):
+            x = (i8(B, M, 1, K) if b.kind == "gemm"
+                 else i8(B, a["H"], a["W"], a["C_in"]))
+            got = tiled_int8(x, w, tiles, mask, wt=wt, **geo)
+            err = expect_equal(torch, f"K6 {b.name} batch {B}", got,
+                               tiled_int8_plain(x, w, tiles, mask, **geo))
+            kernels["tiled_int8"]["max_abs_err"] = max(
+                kernels["tiled_int8"]["max_abs_err"], err)
+            row = {"op": b.name, "cls": k6_class(b, M, N, K), "B": B,
+                   "ms": graph_ms(torch, lambda: tiled_int8(
+                       x, w, tiles, mask, wt=wt, **geo)),
+                   "plain_ms": None, "int_mm_ms": None}
+            if B == 1:
+                row["plain_ms"] = graph_ms(
+                    torch, lambda: tiled_int8_plain(x, w, tiles, mask, **geo))
+            # torch._int_mm on the im2col matrix, padded to its limits (M >
+            # 16, K and N multiples of 8; cuBLASLt refused M = 3032 at K =
+            # 64, so M is padded to a multiple of 32); the im2col itself is
+            # not timed
+            cols = kref.im2col_patches(x, geo.get("kh", 1), geo.get("kw", 1),
+                                       geo.get("stride", 1),
+                                       geo.get("padding", 0)).reshape(-1, K)
+            Mp = -(-B * M // 32) * 32
+            Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+            xp = torch.zeros(Mp, Kp, dtype=torch.int8, device=dev)
+            wp = torch.zeros(Kp, Np, dtype=torch.int8, device=dev)
+            xp[:B * M, :K], wp[:K, :N] = cols, w
+            try:
+                ref = torch._int_mm(xp, wp)
+            except RuntimeError as e:    # cuBLASLt refuses some int8 shapes
+                refused.append(f"{b.name} batch {B} ({Mp}x{Kp}x{Np}: "
+                               f"{str(e).splitlines()[0][:120]})")
+            else:
+                if not torch.equal(ref[:B * M, :N], got.reshape(B * M, N)):
+                    fail(f"torch._int_mm disagrees with K6 at {b.name} "
+                         f"batch {B}")
+                row["int_mm_ms"] = graph_ms(torch,
+                                            lambda: torch._int_mm(xp, wp))
+            row["bound_ms"] = bounds[B].add(
+                x.numel() + w.numel() + 4 * B * M * N, 2 * B * area * K)
+            rows.append(row)
+    out = {"rows": rows, "int_mm_refused": refused}
+    for B in (1, 8):
+        mine = [r for r in rows if r["B"] == B]
+        lib = [r["int_mm_ms"] for r in mine]
+        out[f"b{B}"] = {
+            "ms": sum(r["ms"] for r in mine),
+            "int_mm_ms": sum(v for v in lib if v is not None),
+            "ms_over_int_mm_ops": sum(r["ms"] for r in mine
+                                      if r["int_mm_ms"] is not None),
+            "library_ms": None if None in lib else sum(lib),
+            "bound_ms": bounds[B].ms, "bound_by": bounds[B].by}
+        classes: dict = {}
+        for r in mine:
+            classes.setdefault(r["cls"], []).append(r)
+        for cls, rs in classes.items():
+            lib_c = [r["int_mm_ms"] for r in rs]
+            say(f"[K6 table] batch {B} {cls} x{len(rs)}: kernel "
+                f"{sum(r['ms'] for r in rs):.4f} ms, bound "
+                f"{sum(r['bound_ms'] for r in rs):.5f} ms, torch._int_mm "
+                + (f"{sum(lib_c):.4f} ms" if None not in lib_c
+                   else "refused"))
+    b1 = out["b1"]
     # the library time stands for the whole program only where
     # torch._int_mm took every op; else it is kept beside K6's time over
     # the ops it took, and the JSON line has none
-    return {"ms": ms, "plain_ms": pms,
-            "library_ms": None if refused else lib,
-            "int_mm_ms": lib, "ms_over_int_mm_ops": ms_lib,
-            "int_mm_refused": refused,
-            "bound_ms": bound.ms, "bound_by": bound.by}
+    out.update({"ms": b1["ms"], "int_mm_ms": b1["int_mm_ms"],
+                "ms_over_int_mm_ops": b1["ms_over_int_mm_ops"],
+                "library_ms": b1["library_ms"], "bound_ms": b1["bound_ms"],
+                "bound_by": b1["bound_by"],
+                "plain_ms": sum(r["plain_ms"] for r in rows if r["B"] == 1)})
+    return out
+
+
+def k6_host_us(torch, C, prog, tables, i8, calls: int = 50) -> dict:
+    """The host's share of K6 on the mesh path, which is host-bound: at
+    every tiled op of a batch-1 program (the 1 x 1 table of each), the
+    time to issue one call on the host clock (the mean of `calls` calls,
+    no synchronize between them), for the whole wrapper, its cached plan
+    lookup alone and its library call alone (tensor maps and the launch),
+    summed over the program (us)."""
+    from repro_torch.kernels import _lib
+    K6 = importlib.import_module("repro_torch.kernels.tiled_int8")
+    consts = C.device_consts(prog, torch.device("cuda"))
+    lib = _lib.load("tiled_int8")
+
+    def issue_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / calls
+        torch.cuda.synchronize()
+        return us
+
+    sums = {"wrapper": 0.0, "plan": 0.0, "library": 0.0, "calls": 0}
+    for b in prog.batches:
+        if b.kind not in ("gemm", "conv2d"):
+            continue
+        a = b.attrs
+        tiles, mask = tables[b.op_idx]
+        w = consts.weights[b.w_idx]
+        wt = K6.prepare_weights(w)
+        geo = ({} if b.kind == "gemm" else
+               dict(kh=a["kh"], kw=a["kw"], stride=a["stride"],
+                    padding=a["padding"]))
+        x = (i8(1, a["M"], 1, a["K"]) if b.kind == "gemm"
+             else i8(1, a["H"], a["W"], a["C_in"]))
+        B, H, W, Cin = x.shape
+        K, N = w.shape
+        kh, kw = geo.get("kh", 1), geo.get("kw", 1)
+        stride, pad = geo.get("stride", 1), geo.get("padding", 0)
+        oh, ow = K6._out_hw(H, W, kh, kw, stride, pad)
+        out = K6.tiled_int8(x, w, tiles, mask, wt=wt, **geo)
+        run = K6._launch_plan(tiles, mask, oh * ow, N, K, B, x.device)
+        args = (x.data_ptr(), wt.data_ptr(), wt.shape[1],
+                run.units.data_ptr(), run.units.shape[0], run.plan.items,
+                run.plan.splits, run.plan.bn, out.data_ptr(), B, H, W, Cin,
+                N, kh, kw, stride, pad, run.ws or None,
+                run.counters or None, run.sms, _lib.stream_ptr(x))
+        sums["wrapper"] += issue_us(
+            lambda: K6.tiled_int8(x, w, tiles, mask, wt=wt, **geo))
+        sums["plan"] += issue_us(
+            lambda: K6._launch_plan(tiles, mask, oh * ow, N, K, B, x.device))
+        sums["library"] += issue_us(lambda: lib.tiled_int8_launch(*args))
+        sums["calls"] += 1
+    return sums
 
 
 def cluster_phase(torch, np, hw, g, params, inputs, mk_out, mk_fn, kernels,
@@ -2098,6 +2213,12 @@ def cluster_phase(torch, np, hw, g, params, inputs, mk_out, mk_fn, kernels,
                 tables[b.op_idx] = (tiles[0], mask[0])
         k6 = k6_timings(torch, np, C, mprog, tables, i8, kernels)
         kernels["tiled_int8"].update(k6)
+        k6_host = k6_host_us(torch, C, mprog, tables, i8)
+        say(f"[K6 host] issue time per batch-1 program ({k6_host['calls']} "
+            f"calls, host clock, the mean of 50 calls at each op): wrapper "
+            f"{k6_host['wrapper']:.1f} us, of it the plan lookup "
+            f"{k6_host['plan']:.1f} us and the library call "
+            f"{k6_host['library']:.1f} us (tensor maps and the launch)")
         cuda_k = (kernels["conv2d_int8"]["ms"] + kernels["gemm_int8"]["ms"]
                   + kernels["megakernel"]["ms"])
         say(f"[cluster] {smi}: batch-1 latency (host clock, median of 3 "
@@ -2105,21 +2226,26 @@ def cluster_phase(torch, np, hw, g, params, inputs, mk_out, mk_fn, kernels,
                 f"{k} {statistics.median(v):.3f} ms (rounds "
                 f"{', '.join(f'{x:.3f}' for x in v)})"
                 for k, v in lat.items()))
+        taken = sum(r["int_mm_ms"] is not None for r in k6["rows"]
+                    if r["B"] == 1)
+        b8 = k6["b8"]
         say(f"[K6] over one batch-1 program (54 ops, summed): kernel "
             f"{k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
-            f"torch._int_mm {k6['int_mm_ms']:.4f} ms over the "
-            f"{54 - len(k6['int_mm_refused'])} ops it takes (K6 there "
-            f"{k6['ms_over_int_mm_ops']:.4f} ms; refused: "
-            f"{'; '.join(k6['int_mm_refused']) or 'none'}), bound "
+            f"torch._int_mm {k6['int_mm_ms']:.4f} ms over the {taken} ops "
+            f"it takes (K6 there {k6['ms_over_int_mm_ops']:.4f} ms; "
+            f"refused: {'; '.join(k6['int_mm_refused']) or 'none'}), bound "
             f"{k6['bound_ms']:.5f} ms ({k6['bound_by']}); the cuda "
             f"backend's K2 over its 50 convs {kernels['conv2d_int8']['ms']:.4f}"
-            f" ms (K1 + K2 + K3 {cuda_k:.4f} ms)")
+            f" ms (K1 + K2 + K3 {cuda_k:.4f} ms); at batch 8: kernel "
+            f"{b8['ms']:.4f} ms, torch._int_mm {b8['int_mm_ms']:.4f} ms, "
+            f"bound {b8['bound_ms']:.5f} ms")
         report["cluster"] = {
             "launches_per_program": per_program[1],
             "profile": {"busy_us": busy_us, "wall_us": wall_us,
                         "device_events": len(names), "k6_by_try": tries,
                         "nccl": nccl, "top_us": top},
-            "latency_ms": lat, "k6": k6, "cuda_k2_ms":
+            "latency_ms": lat, "k6": k6, "k6_host_us": k6_host,
+            "cuda_k2_ms":
                 kernels["conv2d_int8"]["ms"], "cuda_kernels_ms": cuda_k,
             "server_dispatched": [before, after],
             "mesh_server_launches": main_counts,
@@ -2195,17 +2321,21 @@ def main() -> None:
             + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in ks.items()))
     sass = sass_counts(out_dir)
     report["sass"] = sass
-    ops = ("HMMA", "IMMA", "IDP")
-    say("[build] tensor-core and dp4a instructions in the SASS "
+    say("[build] tensor-core, dp4a and TMA instructions in the SASS "
         "(cuobjdump -sass): " + "; ".join(
-            f"lib{k}.so " + ", ".join(f"{op} x{v[op]}" for op in ops)
-            + f" ({', '.join(f for op in ops for f in v[op + ' forms'])})"
+            f"lib{k}.so " + ", ".join(f"{op} x{v[op]}" for op in SASS_OPS)
+            + f" ({', '.join(f for op in SASS_OPS for f in v[op + ' forms'])})"
             for k, v in sass.items()))
+    say(f"[build] K6: IGMMA x{sass['tiled_int8']['IGMMA']}, TMA loads "
+        f"(UTMALDG) x{sass['tiled_int8']['UTMALDG']}")
+    # K6 multiplies with wgmma (IGMMA), K1-K3 with mma.sync (IMMA)
     if sass["flash_attention"]["HMMA"] == 0 or any(
             sass[k]["IMMA"] == 0 for k in ("conv2d_im2col", "gemm_int8",
-                                           "megakernel", "tiled_int8")):
+                                           "megakernel")) or \
+            sass["tiled_int8"]["IGMMA"] == 0 or \
+            sass["tiled_int8"]["UTMALDG"] == 0:
         fail("K4's 16-bit kernels, K2, K1, K3 or K6 hold no tensor-core "
-             "instruction")
+             "instruction, or K6 no TMA load")
     if sass["megakernel"]["IDP"]:
         fail("K3 still multiplies with dp4a")
     clock.lap("2 build")

@@ -8,7 +8,8 @@ this module executes exactly those per-rank tile sets over
 
   * every rank materializes the op's operands (inputs are replicated),
     computes ONLY its own tiles into a zero int32 accumulator (K6,
-    `kernels.tiled_int8`: one launch per op per rank), and an int32
+    `kernels.tiled_int8`: one launch per op per rank, on a K-major copy of
+    the op's weights made once when the program is built), and an int32
     `all_reduce(SUM)` over the model group reconstructs the full output —
     the analogue of the paper's cores writing disjoint output tiles back to
     shared memory. The tile sets are disjoint and exactly cover the output
@@ -42,7 +43,7 @@ import torch
 from ..core import compiled as _C
 from ..core.compiled import CompiledProgram, CompileError, partition_streams
 from ..core.graph import conv_out_hw
-from ..kernels.tiled_int8 import tiled_int8
+from ..kernels.tiled_int8 import prepare_weights, tiled_int8
 from ..launch.mesh import make_host_mesh
 
 
@@ -86,18 +87,21 @@ def _stack_tiles(parts: list[dict[int, np.ndarray]],
 
 
 def _tiled_partial(x: torch.Tensor, w: torch.Tensor, tiles: np.ndarray,
-                   mask: np.ndarray, b) -> torch.Tensor:
+                   mask: np.ndarray, b,
+                   wt: torch.Tensor | None = None) -> torch.Tensor:
     """This rank's partial int32 accumulator of op batch `b` (gemm or
     conv2d) over a leading batch axis: the sum of its own tiles' x.w
-    products, zero elsewhere, in the op's output shape."""
+    products, zero elsewhere, in the op's output shape. `wt`: w as
+    `prepare_weights` gives it (on a GPU)."""
     a = b.attrs
     B = x.shape[0]
     if b.kind == "gemm":
-        acc = tiled_int8(x.reshape(B, a["M"], 1, a["K"]), w, tiles, mask)
+        acc = tiled_int8(x.reshape(B, a["M"], 1, a["K"]), w, tiles, mask,
+                         wt=wt)
         return acc.reshape(B, a["M"], a["N"])
     oh, ow = conv_out_hw(a)
     acc = tiled_int8(x, w, tiles, mask, kh=a["kh"], kw=a["kw"],
-                     stride=a["stride"], padding=a["padding"])
+                     stride=a["stride"], padding=a["padding"], wt=wt)
     return acc.reshape(B, oh, ow, a["C_out"])
 
 
@@ -113,8 +117,12 @@ def _mesh_body(prog: CompiledProgram, mesh, device: torch.device):
     for b in prog.batches:
         if b.kind in ("gemm", "conv2d"):
             tiles, mask = _stack_tiles(parts, b.op_idx)
+            # K6 reads the weights K-major: the copy is made here, once
+            # per op, and no call transposes (the CPU path needs none)
+            wt = (prepare_weights(consts.weights[b.w_idx])
+                  if device.type == "cuda" else None)
             tables[b.op_idx] = (tiles[mesh.model_index],
-                                mask[mesh.model_index])
+                                mask[mesh.model_index], wt)
 
     def run(inputs: dict) -> dict:
         vals: list = [None] * len(prog.buffers)
@@ -122,10 +130,10 @@ def _mesh_body(prog: CompiledProgram, mesh, device: torch.device):
             vals[i] = inputs[name]
         for b in prog.batches:
             if b.kind in ("gemm", "conv2d"):
-                tiles, mask = tables[b.op_idx]
+                tiles, mask, wt = tables[b.op_idx]
                 acc = _tiled_partial(vals[b.in_idx[0]],
                                      consts.weights[b.w_idx], tiles, mask,
-                                     b)
+                                     b, wt)
                 if mesh.distributed:
                     torch.distributed.all_reduce(acc,
                                                  group=mesh.model_group)

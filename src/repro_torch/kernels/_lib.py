@@ -124,7 +124,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         "flash_attention_launch": [P, P, P, P, I, I, I, I, I, I, I, I, F, I,
                                    P],
         "ssm_scan_launch": [P, P, P, P, I, I, L, P],
-        "tiled_int8_launch": [P, P, P, I, P, I, I, I, I, I, I, I, I, I, P],
+        "tiled_int8_launch": [P, P, I, P, I, I, I, I, P, I, I, I, I, I, I,
+                              I, I, I, P, P, I, P],
     }
     for name, args in table.items():
         fn = getattr(lib, name, None)

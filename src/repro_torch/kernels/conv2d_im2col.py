@@ -54,7 +54,9 @@ def split_workspace(device: torch.device, kind: str, n: int) -> torch.Tensor:
     "barrier" (zeroed once here; the kernels leave them at zero). Kept for
     the process's life, so a CUDA graph that captured a launch replays
     against live memory, and reused by every launch of K1, K2 and K3 on
-    the device, which must therefore run on one stream at a time."""
+    the device (K6 takes kinds of its own, "tiled_partials" and
+    "tiled_counters"), which must therefore run on one stream at a
+    time."""
     size = 1 << max(0, n - 1).bit_length()
     key = (str(device), kind, size)
     with _WS_LOCK:

@@ -45,6 +45,7 @@ from repro_torch.cluster import Router as TRouter
 from repro_torch.cluster import mesh as TM
 from repro_torch.cluster.fleet import ClusterError as TClusterError
 from repro_torch.core import analyze as t_analyze
+from repro_torch.core import compiled as TC
 from repro_torch.core import cnn as tcnn
 from repro_torch.core import init_params as t_init_params
 from repro_torch.core import lower_program as t_lower
@@ -788,7 +789,10 @@ def test_cuda_only_paths_raise_without_a_card():
 @pytest.mark.cuda
 def test_k6_kernel_matches_plain_on_the_card():
     """On a GPU: K6 against its plain version, int32 equal, on random
-    tables and on every tiled op of a test-size ResNet's 4-way split."""
+    tables, on split items, the classifier's batch fold and the stem's
+    geometry, and on every tiled op of a test-size ResNet's 4-way split;
+    the mesh backend prepares each op's K-major weights once, when it
+    builds the program, and never per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (K6 has no interpret mode)")
     dev = torch.device("cuda")
@@ -807,6 +811,40 @@ def test_k6_kernel_matches_plain_on_the_card():
         got = K6.tiled_int8(x, w, tiles, mask, **kw_)
         assert launch_counts()["tiled_int8"] == 1
         assert torch.equal(got, K6.tiled_int8_plain(x, w, tiles, mask, **kw_))
+    # split items (a 7 x 7 3x3 conv: 8 items, 17 splits each), the
+    # classifier's batch fold (B = 8 rows of M = 1 in one item) and the
+    # stem's geometry (C = 3, 7 x 7 stride 2: the register loader), each
+    # on its whole output and on the weights prepared once
+    for B, (H, W, C, k, s, p, N) in [(1, (14, 14, 512, 3, 2, 1, 512)),
+                                     (8, (1, 1, 2048, 1, 1, 0, 1000)),
+                                     (2, (64, 64, 3, 7, 2, 3, 64))]:
+        oh, ow = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+        x = torch.as_tensor(rng.integers(-128, 128, (B, H, W, C))
+                            .astype(np.int8)).to(dev)
+        w = torch.as_tensor(rng.integers(-128, 128, (k * k * C, N))
+                            .astype(np.int8)).to(dev)
+        tiles, mask = np.array([[0, oh * ow, 0, N]]), np.ones(1, bool)
+        plan = K6.work_units(tiles, mask, oh * ow, N, k * k * C, B)
+        assert plan.splits > 1 or C == 3
+        kw_ = dict(kh=k, kw=k, stride=s, padding=p)
+        got = K6.tiled_int8(x, w, tiles, mask, wt=K6.prepare_weights(w),
+                            **kw_)
+        assert torch.equal(got, K6.tiled_int8_plain(x, w, tiles, mask,
+                                                    **kw_))
+    (_, _, mprog) = _mesh_prog(tcnn, t_machine, t_lower, 1, 1)
+    n_tiled = sum(b.kind in ("gemm", "conv2d") for b in mprog.batches)
+    with mock.patch.object(TM, "prepare_weights",
+                           wraps=K6.prepare_weights) as once, \
+            mock.patch.object(K6, "prepare_weights",
+                              wraps=K6.prepare_weights) as per_call:
+        body = TM._mesh_body(mprog, t_make_host_mesh(1, 1), dev)
+        assert once.call_count == n_tiled > 0
+        xin = TC.to_device(mprog, {"input": _frame(5)[None]}, dev)
+        reset_launch_counts()
+        body(xin)
+        body(xin)
+        assert once.call_count == n_tiled and per_call.call_count == 0
+        assert launch_counts()["tiled_int8"] == 2 * n_tiled
     g = tcnn.resnet50(h=32, w=32, width=0.25, blocks=(1, 1, 1, 1),
                       num_classes=16)
     hw = t_machine(4)
