@@ -92,7 +92,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      line per op class with the kernel's, the bound's and torch._int_mm's
      times), summed over the program beside its bound, and the host's
      time to issue K6 over a program (`[K6 host]`: the wrapper, its plan
-     lookup, its library call).
+     lookup, its library call);
+ 11. training: K4 under autograd at smollm-135M's training shape (8, 9,
+     3, 512, 64), f32 and bf16 (forward bit-equal to the no-grad launch,
+     one launch per forward, f32 gradients within rtol 1e-4, atol 1e-5 of
+     the plain version's autograd, bf16 within 5e-2 of max|grad| of the
+     f32 ones); one float32 `train_step` of smollm-135M at full size, card
+     against CPU (loss and gradient norm within rtol 1e-3, params within
+     2.5 x the step's learning rate); 40 bf16 steps through
+     `repro_torch.launch.train.main` (B 8, S 512: losses finite, the last
+     below the first by more than 0.3, a checkpoint on disk, 60 K4
+     launches a step); the same run with a failure injected after the
+     step-24 checkpoint (one restart, 40 steps, losses after it within
+     rtol 1e-2); the (2, 1) data mesh as two processes on the card over
+     gloo (this script with `--train-rank`; 4 layers, float32, zero1:
+     both ranks' params bit-equal and within rtol 1e-4 of one rank); a
+     step's K4 launches (counters and profiler), median time, tokens/s,
+     idle share, peak memory and share of the bf16 peak.
 
 Each LM phase takes its admission period from the modeled bound it
 prints, and prints its seconds and peak device memory. Then a `[phases]`
@@ -2259,6 +2275,445 @@ def cluster_phase(torch, np, hw, g, params, inputs, mk_out, mk_fn, kernels,
     return main_counts["tiled_int8"]
 
 
+# -- 11. training: smollm-135M through repro_torch.launch.train -----------------
+
+# the training cell: smollm-135M at full size, bf16, batch 8 x 512 tokens
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 40
+# the (2, 1) data mesh of phase 11e: two processes on the one card
+TRAIN_MESH_LAYERS, TRAIN_MESH_STEPS, TRAIN_MESH_S = 4, 3, 128
+
+
+class _GlobalBatch:
+    """A data-parallel run's global batch for one rank: every shard of
+    the same step, in rank order."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def batch(self, step, shard=0, n_shards=1):
+        import numpy as np
+        parts = [self.ds.batch(step, i, self.n) for i in range(self.n)]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _train_mesh_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-135m"), dtype="float32",
+                               num_layers=TRAIN_MESH_LAYERS)
+
+
+def _train_mesh_run(mesh, data=None):
+    """Phase 11e's run (zero1 on, float32): TRAIN_MESH_STEPS steps at
+    global batch 8 on the card. Returns (params, losses)."""
+    from repro_torch.train.loop import TrainConfig, train
+    (params, _), m = train(
+        _train_mesh_cfg(), mesh,
+        tc=TrainConfig(num_steps=TRAIN_MESH_STEPS, zero1=True,
+                       log_every=1000, seed=SEED),
+        data=data, seq_len=TRAIN_MESH_S, global_batch=8, device="cuda")
+    return params, m["losses"]
+
+
+def train_rank_main(rank: int, world: int, work: Path) -> None:
+    """One rank of phase 11e (run as `chip_smoke.py --train-rank R W
+    DIR`): join a gloo group on the card, train on the (2, 1) data mesh and
+    keep this rank's params and losses in DIR."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work}/rendezvous", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=180))
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves
+    params, losses = _train_mesh_run(make_host_mesh(data=world, model=1))
+    np.savez(work / f"rank{rank}.npz", losses=np.array(losses),
+             **{f"p{i}": p.cpu().numpy() for i, p in
+                enumerate(leaves(params))})
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def two_process_train(torch, np) -> dict:
+    """Phase 11e: the (2, 1) data mesh as two processes on the card over
+    gloo (zero1 on), against one rank at the same global batch."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves
+    work = ROOT / "build" / "train_two_process"
+    if work.exists():
+        for f in work.iterdir():
+            f.unlink()
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-rank",
+         str(r), "2", str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    except subprocess.TimeoutExpired:
+        fail("[train] a rank of the (2, 1) mesh did not finish in 300 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail("[train] the (2, 1) data mesh failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    secs = time.perf_counter() - t0
+    ranks = [np.load(work / f"rank{r}.npz") for r in range(2)]
+    cfg = _train_mesh_cfg()
+    data = _GlobalBatch(SyntheticTokens(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_MESH_S, global_batch=8,
+        seed=SEED)), 2)
+    params, losses = _train_mesh_run(make_host_mesh(1, 1), data)
+    # tolerance: rtol 1e-4 and an atol of 1e-4 x the leaf's largest
+    # magnitude (the gradient is summed in another order on two ranks)
+    worst = 0.0
+    for i, p in enumerate(leaves(params)):
+        a, b = ranks[0][f"p{i}"], ranks[1][f"p{i}"]
+        if not np.array_equal(a, b):
+            fail(f"[train] (2, 1) mesh: leaf {i} differs between the ranks")
+        want = p.float().cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(a - want).max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not np.allclose(a, want, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"[train] (2, 1) mesh: leaf {i} differs from one rank "
+                 f"(max abs err {err}, max |leaf| {scale})")
+    if not np.allclose(ranks[0]["losses"], losses, rtol=1e-4):
+        fail(f"[train] (2, 1) mesh losses {ranks[0]['losses']} vs one rank "
+             f"{losses}")
+    say(f"[train] (2, 1) data mesh, two processes on the card over gloo, "
+        f"smollm-135m {TRAIN_MESH_LAYERS} of 30 layers float32, zero1, "
+        f"{TRAIN_MESH_STEPS} steps at global batch 8 x {TRAIN_MESH_S}: "
+        f"params bit-equal across ranks, within rtol 1e-4 of one rank "
+        f"(largest err / max|leaf| {worst:.3g}); losses {list(losses)}; "
+        f"{secs:.1f} s with start-up")
+    return {"seconds": secs, "worst_rel": worst, "losses": list(losses)}
+
+
+def train_phase(torch, np, kernels, report, smi) -> int:
+    """Phase 11. Returns K4's launches on the training main path (the
+    entry point's 40 steps)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import (attention_reference,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, params_to
+    from repro_torch.train.fault import InjectedFailure
+    from repro_torch.train.loop import TrainConfig, build_state, train
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(dev).manual_seed(SEED)
+    out: dict = {}
+    report["train"] = out
+    k4 = kernels["flash_attention"]
+
+    # -- 11a. K4 under autograd at smollm's training shape -----------------
+    B, Hq, Hkv, S, D = TRAIN_B, 9, 3, TRAIN_S, 64
+    f32 = [torch.randn(s, generator=gen, device=dev) for s in
+           ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D), (B, Hq, S, D))]
+    # the forward against K4's plain version at this shape (6a's
+    # tolerances: f32 atol 3e-5, rtol 1e-4; bf16 atol 2e-2, rtol 1e-2)
+    grads, a_out, fwd_err = {}, {}, {}
+    for dt, name, atol, rtol in ((torch.float32, "f32", 3e-5, 1e-4),
+                                 (torch.bfloat16, "bf16", 2e-2, 1e-2)):
+        q, k, v, dout = (t.to(dt) for t in f32)
+        nograd = flash_attention(q, k, v)
+        want = flash_attention_plain(q, k, v).float()
+        fwd_err[name] = (nograd.float() - want).abs().max().item()
+        if not torch.allclose(nograd.float(), want, atol=atol, rtol=rtol):
+            fail(f"[train] K4 {name} {(B, Hq, Hkv, S, D)} causal disagrees "
+                 f"with its plain version (max abs err {fwd_err[name]}, "
+                 f"atol {atol}, rtol {rtol})")
+        del want
+        qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+        _lib.reset_launch_counts()
+        o = flash_attention(qs, ks, vs)
+        torch.cuda.synchronize()
+        n = _lib.launch_counts()["flash_attention"]
+        if n != 1:
+            fail(f"[train] K4 under autograd ({name}): {n} launches for one "
+                 "forward, want 1")
+        if not torch.equal(o.detach(), nograd):
+            fail(f"[train] K4 under autograd ({name}): the forward differs "
+                 "from K4's no-grad output")
+        o.backward(dout)
+        grads[name] = [t.grad.float() for t in (qs, ks, vs)]
+        a_out[name] = o.detach()
+        if _lib.launch_counts()["flash_attention"] != 1:
+            fail(f"[train] K4's backward ({name}) launched K4")
+    # the backward's plumbing: dq/dk/dv are autograd of the plain attention
+    # the backward recomputes, so this error is 0 unless the Function
+    # loses or swaps a gradient; the kernel's own error is the forward's
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in f32[:3])
+    attention_reference(qr, kr, vr).backward(f32[3])
+    f32_err = 0.0
+    for got, want in zip(grads["f32"], (qr.grad, kr.grad, vr.grad)):
+        f32_err = max(f32_err, (got - want).abs().max().item())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            fail(f"[train] K4 f32 gradients differ from the plain "
+                 f"version's autograd (max abs err {f32_err})")
+    # bf16 against the f32 gradients: the largest difference over the
+    # largest f32 gradient, held below 5e-2 (bf16 keeps 8 bits)
+    spread = max((g16 - g32).abs().max().item() / g32.abs().max().item()
+                 for g16, g32 in zip(grads["bf16"], grads["f32"]))
+    if not spread < 5e-2:
+        fail(f"[train] K4 bf16 gradients spread {spread} from the f32 ones")
+    q, k, v = (t.to(torch.bfloat16) for t in f32[:3])
+    ms = graph_ms(torch, lambda: flash_attention(q, k, v))
+    pms = graph_ms(torch, lambda: flash_attention_plain(q, k, v))
+    lib_ms = graph_ms(torch, sdpa_call(torch, q, k, v, True))
+    bd = k4_bound(B, Hq, Hkv, S, S, D, True, None, 2)
+    k4["max_abs_err"] = max(k4["max_abs_err"], *fwd_err.values())
+    out["k4_autograd"] = {"shape": [B, Hq, Hkv, S, D], "forward_max_abs_err":
+                          fwd_err, "grad_f32_max_abs_err": f32_err,
+                          "bf16_spread": spread, "ms": ms,
+                          "plain_ms": pms, "library_ms": lib_ms,
+                          "bound_ms": bd.ms, "bound_by": bd.by}
+    say(f"[train] K4 under autograd {(B, Hq, Hkv, S, D)} causal: forward "
+        f"vs the plain version max abs err {fwd_err['f32']:.3g} f32 (atol "
+        f"3e-5, rtol 1e-4), {fwd_err['bf16']:.3g} bf16 (atol 2e-2, rtol "
+        f"1e-2); under autograd bit-equal to K4's no-grad output, 1 launch "
+        f"per forward (f32, bf16); f32 dq/dk/dv vs the recomputed plain "
+        f"attention's autograd max abs err {f32_err:.3g} (rtol 1e-4, atol "
+        f"1e-5); bf16 vs f32 gradients spread {spread:.3g} of max|grad| "
+        f"(< 5e-2)")
+    say(f"[train] K4 bf16 forward at the training shape: kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, library (scaled_dot_product_attention) "
+        f"{lib_ms:.4f} ms, bound {bd.ms:.5f} ms ({bd.by}); {smi}")
+    del f32, grads, a_out, qs, ks, vs, qr, kr, vr, o, nograd, q, k, v
+    free(torch, out)
+
+    # -- 11b. one train_step of a float32 copy, card against CPU ------------
+    cfg32 = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    p_cpu = init_params(cfg32, torch.Generator().manual_seed(SEED), "cpu")
+    p_dev = params_to(p_cpu, dev)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg32.vocab_size, (2, 129))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]),
+             "labels": torch.as_tensor(toks[:, 1:])}
+    opt = OptConfig()
+    step = make_train_step(cfg32, opt)
+    t0 = time.perf_counter()
+    pc, oc, mc = step(p_cpu, init_opt_state(p_cpu), batch)
+    cpu_s = time.perf_counter() - t0
+    pd, od, md = step(p_dev, init_opt_state(p_dev),
+                      {k_: v_.to(dev) for k_, v_ in batch.items()})
+    lr0 = float(mc["lr"])
+    for key in ("loss", "grad_norm"):
+        a, b = float(md[key]), float(mc[key])
+        if not math.isclose(a, b, rel_tol=1e-3):
+            fail(f"[train] float32 train_step {key}: card {a}, CPU {b}")
+    # updated params: AdamW's first step moves each element by about lr x
+    # sign(g), so a near-zero gradient whose sign differs between the two
+    # devices moves it 2 lr apart: held within 2.5 lr
+    p_err, n_far, n_all = 0.0, 0, 0
+    for a, b in zip(_leaves(pd), _leaves(pc)):
+        d_ = (a.cpu() - b).abs()
+        p_err = max(p_err, d_.max().item())
+        n_far += int((d_ > 1e-6).sum())
+        n_all += d_.numel()
+    if p_err > 2.5 * lr0:
+        fail(f"[train] float32 train_step params: card vs CPU max abs err "
+             f"{p_err} > 2.5 lr ({2.5 * lr0})")
+    # the first moment after step 1 is 0.1 x clip x g: the clipped gradient
+    # itself, leaf by leaf. Held within rtol 1e-3 and an atol of 1e-3 of
+    # the leaf's largest |mu| on the CPU (a gradient wrong in direction but
+    # right in norm fails here, where the params' lr-sized step cannot see
+    # it)
+    mu_err = 0.0
+    for i, (a, b) in enumerate(zip(_leaves(od["mu"]), _leaves(oc["mu"]))):
+        a, top = a.cpu(), b.abs().max().item()
+        err = ((a - b).abs().max().item() / top) if top > 0 else 0.0
+        mu_err = max(mu_err, err)
+        if not torch.allclose(a, b, rtol=1e-3, atol=1e-3 * top):
+            fail(f"[train] float32 train_step mu leaf {i}: card vs CPU max "
+                 f"abs err {err} of the leaf's max (rtol 1e-3, atol 1e-3 "
+                 f"x max)")
+    out["card_vs_cpu"] = {"loss": [float(md["loss"]), float(mc["loss"])],
+                          "grad_norm": [float(md["grad_norm"]),
+                                        float(mc["grad_norm"])],
+                          "param_max_abs_err": p_err, "lr": lr0,
+                          "mu_max_err_of_leaf_max": mu_err,
+                          "frac_over_1e-6": n_far / n_all, "cpu_s": cpu_s}
+    say(f"[train] smollm-135m float32 full size, one train_step at B 2, S "
+        f"128, card vs CPU: loss {float(md['loss']):.6f} / "
+        f"{float(mc['loss']):.6f}, grad norm {float(md['grad_norm']):.6f} / "
+        f"{float(mc['grad_norm']):.6f} (rtol 1e-3); params max abs err "
+        f"{p_err:.3g} (<= 2.5 lr = {2.5 * lr0:.3g}), "
+        f"{n_far / n_all:.2e} of elements apart by more than 1e-6; mu (the "
+        f"clipped gradient) leaf by leaf max abs err {mu_err:.3g} of the "
+        f"leaf's max (rtol 1e-3, atol 1e-3 x max)")
+    del p_cpu, p_dev, pc, pd, oc, od, step
+    free(torch, out)
+
+    # -- 11c. the entry point: 40 steps of bf16 smollm-135M -----------------
+    work = ROOT / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = ["--arch", "smollm-135m", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--ckpt", str(work / "a"),
+            "--out", str(work / "a.json")]
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, m1 = launch_train.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    k4_main = _lib.launch_counts()["flash_attention"]
+    losses = m1["losses"]
+    if len(losses) != TRAIN_STEPS or m1["history"]["completed"] != \
+            TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        fail(f"[train] the entry point: {len(losses)} losses, history "
+             f"{m1['history']}, finite {all(map(math.isfinite, losses))}")
+    if not losses[-1] < losses[0] - 0.3:
+        fail(f"[train] no learning: loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}")
+    ckpt_steps = sorted(int(p.name.split("_")[1]) for p in
+                        (work / "a").glob("step_*"))
+    if not ckpt_steps or not (work / "a" / "LATEST").exists() or \
+            not (work / "a.json").exists():
+        fail(f"[train] no checkpoint or metrics on disk ({ckpt_steps})")
+    per_step = k4_main / TRAIN_STEPS
+    out["entry_point"] = {"losses": losses, "history": m1["history"],
+                          "seconds": run_s, "k4_launches": k4_main,
+                          "checkpoints": ckpt_steps}
+    say(f"[train] python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{TRAIN_STEPS} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"checkpoints {ckpt_steps}, {run_s:.1f} s with checkpoints; K4 "
+        f"launches {k4_main} ({per_step:g} per step)")
+    free(torch, out)
+
+    # -- 11d. the same run with a failure injected after step 24's save ------
+    cfg = get_config("smollm-135m")
+    opt = OptConfig(lr=3e-4, schedule="cosine", total_steps=TRAIN_STEPS,
+                    warmup_steps=max(1, TRAIN_STEPS // 20))
+    _, m2 = train(cfg, make_host_mesh(1, 1), opt_cfg=opt,
+                  tc=TrainConfig(num_steps=TRAIN_STEPS,
+                                 ckpt_dir=str(work / "b")),
+                  seq_len=TRAIN_S, global_batch=TRAIN_B, device="cuda",
+                  fail_at={25: InjectedFailure("injected after step 24's "
+                                               "checkpoint")})
+    h = m2["history"]
+    if h["restarts"] != 1 or h["completed"] != TRAIN_STEPS or \
+            len(m2["losses"]) != TRAIN_STEPS:
+        fail(f"[train] recovery: history {h}, {len(m2['losses'])} losses")
+    after = np.array(m2["losses"][25:])
+    want = np.array(losses[25:])
+    diff = float(np.abs(after - want).max())
+    if not np.allclose(after, want, rtol=1e-2, atol=0):
+        fail(f"[train] recovery: losses from the restart {after} vs the "
+             f"uninterrupted run's {want}")
+    out["recovery"] = {"history": h, "losses": m2["losses"],
+                       "max_abs_diff_after_restart": diff}
+    say(f"[train] recovery: a failure injected at step 25 (after the step-"
+        f"24 checkpoint): restarts {h['restarts']}, completed "
+        f"{h['completed']}; losses of steps 25-39 within rtol 1e-2 of the "
+        f"uninterrupted run's (largest difference {diff:.3g})")
+    shutil.rmtree(work, ignore_errors=True)
+    free(torch, out)
+
+    # -- 11e. the (2, 1) data mesh, two processes on the card ---------------
+    out["mesh"] = two_process_train(torch, np)
+    free(torch, out)
+
+    # -- 11f. launches and time of one training step -----------------------
+    mesh = make_host_mesh(1, 1)
+    params, opt_state, _ = build_state(cfg, mesh, zero1=False, seed=SEED,
+                                       device="cuda")
+    from repro_torch.data import DataConfig, SyntheticTokens
+    ds = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                    seed=SEED))
+    batch = {k_: torch.as_tensor(v_).to(dev) for k_, v_ in
+             ds.batch(0).items()}
+    step = make_train_step(cfg, opt)
+
+    def one():
+        return float(step(params, opt_state, batch)[2]["loss"])
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counted = _lib.launch_counts()["flash_attention"] / len(times)
+    step_ms = statistics.median(times)
+    mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    (by_name, busy_us, wall_us, names), tries = profile_confirm(
+        torch, one, lambda ns: sum("flash_attention_kernel" in n
+                                   for n in ns), int(counted))
+    if names and tries[-1] != counted:
+        fail(f"[train] profiler saw {tries} K4 launches in a step "
+             f"({len(tries)} tries), the counters {counted}")
+    if counted != 2 * cfg.num_layers or per_step != counted:
+        fail(f"[train] K4 launches per step: counters {counted} (entry "
+             f"point {per_step}), want {2 * cfg.num_layers} (30 forward + "
+             "30 in the full remat's recomputation)")
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * n_params * tokens + \
+        6 * cfg.num_layers * TRAIN_B * cfg.num_heads * TRAIN_S ** 2 * cfg.hd
+    idle = 1 - busy_us / wall_us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out["step"] = {"step_ms": step_ms, "times_ms": times,
+                   "tokens_per_s": tokens / step_ms * 1e3,
+                   "k4_per_step": counted, "profiler_k4": tries,
+                   "busy_us": busy_us, "profiled_wall_us": wall_us,
+                   "idle_share": idle, "max_memory_allocated_gb": mem_gb,
+                   "model_flops": flops, "n_params": n_params,
+                   "bf16_peak_share": flops / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+                   "top": top}
+    say(f"[train] smollm-135m bf16 B {TRAIN_B} S {TRAIN_S}, remat full: K4 "
+        f"launches per step {counted:g} (counters), profiler {tries}; "
+        f"{smi}")
+    say(f"[train] step median {step_ms:.2f} ms over {len(times)} steps after "
+        f"3 warm-up ({min(times):.2f}-{max(times):.2f}); {smi}")
+    say(f"[train] tokens/s {tokens / step_ms * 1e3:.0f}; {smi}")
+    say(f"[train] profiled step: busy {busy_us:.0f} us of {wall_us:.0f} us "
+        f"wall, idle share {idle:.3f}; top: " + ", ".join(
+            f"{n_} {us:.0f} us" for n_, us in top) + f"; {smi}")
+    say(f"[train] torch.cuda.max_memory_allocated {mem_gb:.2f} GB; {smi}")
+    say(f"[train] modeled FLOPs per step {flops / 1e12:.3f} T (6 x "
+        f"{n_params / 1e6:.1f} M params x {tokens} tokens + causal "
+        f"attention), {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+        f"{flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.4f} of the bf16 dense "
+        f"peak (989 TFLOP/s); {smi}")
+    del params, opt_state, step
+    free(torch, out)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[train] phase {out['phase_s']:.1f} s, "
+        f"torch.cuda.max_memory_allocated "
+        f"{out['max_memory_allocated_gb']:.1f} GB")
+    return k4_main
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2865,6 +3320,10 @@ def main() -> None:
                                 report, smi)
     clock.lap("10 cluster")
 
+    # -- 11. training: smollm-135M through repro_torch.launch.train ----------
+    train_k4 = train_phase(torch, np, kernels, report, smi)
+    clock.lap("11 train")
+
     # -- result lines ---------------------------------------------------------
     where = {
         "gemm_int8": ("src/repro_torch/csrc/gemm_int8.cu",
@@ -2882,13 +3341,16 @@ def main() -> None:
     }
     # an LM kernel's launches: its serving runs on the LM main paths
     # (zamba2-1.2b, rwkv6-1.6b and mixtral-8x22b through the Server,
-    # seamless-m4t-medium through ServeEngine.serve), each counted around
-    # its own run
+    # seamless-m4t-medium through ServeEngine.serve) and, for K4, the
+    # training entry point's 40 steps, each counted around its own run
     launches = {**{k: serve_counts[k] for k in CNN_KERNELS},
                 **{k: lm_counts[k] + sum(c[k] for c in family_counts.values())
                    for k in LM_KERNELS},
                 "tiled_int8": k6_launches}
-    report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts}
+    launches["flash_attention"] += train_k4
+    report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts,
+                                  "train smollm-135m": {
+                                      "flash_attention": train_k4}}
     line = {"kernels": []}
     for k in _lib.KERNELS:
         kd = kernels[k]
@@ -2915,5 +3377,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    elif sys.argv[1:2] == ["--train-rank"]:
+        train_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                        Path(sys.argv[4]))
     else:
         main()

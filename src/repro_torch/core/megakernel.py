@@ -430,8 +430,9 @@ def _grid_and_sms(device) -> tuple[int, int]:
     count that the split rule fills."""
     lib = _lib.load("megakernel")
     n = ctypes.c_int(0)
-    _lib.check(lib, lib.megakernel_max_grid(ctypes.byref(n)),
-               "megakernel_max_grid")
+    with torch.cuda.device(device):       # the query reads the current card
+        _lib.check(lib, lib.megakernel_max_grid(ctypes.byref(n)),
+                   "megakernel_max_grid")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(n.value, 2 * sms)), sms
 
@@ -443,6 +444,7 @@ def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
     `build_segment_table`), its plain version on CPU tensors. A kernel
     launch counts one; the plain version counts none."""
     ins = tab.ins if tab is not None else _segment_io(prog, seg)[0]
+    _lib.refuse_grad("megakernel", *(vals[i] for i in ins))
     device = vals[ins[0]].device     # a segment always reads from outside
     if device.type == "cpu":
         run_fused_plain(prog, seg, vals, consts)
@@ -481,10 +483,11 @@ def run_fused(prog: C.CompiledProgram, seg: Segment, vals: list,
     if n_ws:
         part = split_workspace(device, "partials", n_ws).data_ptr()
         cnt = split_workspace(device, "counters", n_cnt).data_ptr()
-    err = lib.megakernel_launch(tab.table.data_ptr(), tab.n_rows, io,
-                                len(ptrs), ws.data_ptr(), B, bar.data_ptr(),
-                                grid, sms, part, n_ws, cnt, n_cnt,
-                                _lib.stream_ptr(ws))
+    with torch.cuda.device(device):
+        err = lib.megakernel_launch(tab.table.data_ptr(), tab.n_rows, io,
+                                    len(ptrs), ws.data_ptr(), B,
+                                    bar.data_ptr(), grid, sms, part, n_ws,
+                                    cnt, n_cnt, _lib.stream_ptr(ws))
     _lib.check(lib, err, "megakernel")
     _lib.count_launch("megakernel")
     for i, o in zip(tab.outs, outs):

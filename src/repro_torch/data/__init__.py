@@ -1,0 +1,5 @@
+"""Deterministic, seekable data pipeline."""
+
+from .pipeline import DataConfig, SyntheticTokens
+
+__all__ = ["DataConfig", "SyntheticTokens"]

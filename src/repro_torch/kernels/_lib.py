@@ -14,6 +14,14 @@ Launch counters: a kernel wrapper adds one to its counter after its kernel
 launched without error, and nowhere else; a call that takes the plain
 version (a CPU tensor) counts nothing. `reset_launch_counts` /
 `launch_counts` read them.
+
+The libraries launch on the current device: a wrapper makes its tensors'
+card current around the call (`with torch.cuda.device(...)`). No wrapper
+returns a result cut off from autograd: K4 and K5 go through an autograd
+Function under grad (kernel forward, the plain version's gradient); K1, K2
+and K3, which take float multipliers beside int8 data, call `refuse_grad`
+first, on every device (K6 takes int8 tensors only, which cannot require
+grad).
 """
 
 from __future__ import annotations
@@ -43,6 +51,18 @@ _COUNTS = {k: 0 for k in KERNELS}
 
 def count_launch(kernel: str) -> None:
     _COUNTS[kernel] += 1
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise `RuntimeError` if grad mode is on and an input of `kernel`
+    (which has no backward) requires grad: its output would be cut off
+    from the graph, and the gradients would be lost without an error."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the kernel has no backward, and an input requires "
+            "grad; call it under torch.no_grad() or on detached inputs")
 
 
 def reset_launch_counts() -> None:

@@ -105,6 +105,7 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)} do not fit a {kh}x{kw} kernel")
     if x.device != w.device:
         raise ValueError(f"conv2d_int8: x on {x.device}, w on {w.device}")
+    _lib.refuse_grad("conv2d_int8", x, w, requant_mult)
     if x.device.type == "cpu":
         return conv2d_int8_plain(x, w, requant_mult, kh=kh, kw=kw,
                                  stride=stride, padding=padding)
@@ -132,12 +133,13 @@ def conv2d_int8(x: torch.Tensor, w: torch.Tensor,
                              tiles * S * TILE_M * TILE_N).data_ptr()
         cnt = split_workspace(x.device, "counters", tiles).data_ptr()
     lib = _lib.load("conv2d_im2col")
-    err = lib.conv2d_int8_launch(
-        x.data_ptr(), w.data_ptr(),
-        None if mult is None else mult.data_ptr(),
-        1 if mult is None else mult.numel(), out.data_ptr(),
-        B, H, W, C, N, kh, kw, stride, padding, S, ws, cnt,
-        _lib.stream_ptr(x))
+    with torch.cuda.device(x.device):
+        err = lib.conv2d_int8_launch(
+            x.data_ptr(), w.data_ptr(),
+            None if mult is None else mult.data_ptr(),
+            1 if mult is None else mult.numel(), out.data_ptr(),
+            B, H, W, C, N, kh, kw, stride, padding, S, ws, cnt,
+            _lib.stream_ptr(x))
     _lib.check(lib, err, "conv2d_int8")
     _lib.count_launch("conv2d_int8")
     return out

@@ -9,13 +9,16 @@ the wrapper takes for CPU tensors only. Both keep the Pallas kernel's
 semantics: the causal mask with the decode offset Skv - Sq, the optional
 sliding window, the `scale` override, the -1e30 sentinel and
 `acc / max(l, 1e-30)`.
+
+K4 has no backward kernel. Under autograd `FlashAttentionFn` runs K4
+forward and differentiates the plain attention in its backward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _lib
+from . import _lib, ref
 from .ref import NEG
 
 # the kernel's kv tile; the plain version walks the kv axis in the same
@@ -102,19 +105,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                scale=scale, q_chunk=q.shape[2], kv_chunk=BK)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
-    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
-    dtype (f32, f16 or bf16; softmax in f32, products in f32 for f32
-    inputs and in the input's type otherwise). `scale` overrides
-    1/sqrt(D).
+# Up to this many positions the plain attention is the direct oracle;
+# beyond, the blockwise online softmax (`attention_reference`).
+BLOCKWISE_THRESHOLD = 4096
 
-    On a CUDA tensor this launches K4; on a CPU tensor it runs
-    `flash_attention_plain`. A kernel launch counts one; the plain version
-    counts none.
-    """
-    _check(q, k, v)
+
+def attention_reference(q, k, v, *, causal=True, window=None,
+                        scale: float | None = None,
+                        blockwise_threshold: int | None = None):
+    """The plain attention that `models.attention.attend` runs on CPU
+    tensors, and that K4's backward differentiates: the direct oracle
+    (`ref.flash_attention`) up to `blockwise_threshold` positions
+    (`BLOCKWISE_THRESHOLD` when None), the blockwise online softmax
+    beyond."""
+    if blockwise_threshold is None:
+        blockwise_threshold = BLOCKWISE_THRESHOLD
+    if max(q.shape[2], k.shape[2]) <= blockwise_threshold:
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return attention_blockwise(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+
+def _kernel_forward(q, k, v, causal, window, scale):
+    """K4 on CUDA tensors (one launch, counted), `flash_attention_plain`
+    on CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, scale)
     if q.device.type != "cuda":
@@ -128,11 +143,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lib = _lib.load("flash_attention")
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-        Sq, Skv, D, int(causal), -1 if window is None else int(window),
-        float(1.0 / (D ** 0.5) if scale is None else scale),
-        _DTYPES[q.dtype], _lib.stream_ptr(q))
+    # the library launches on the current device: make it q's
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            Hkv, Sq, Skv, D, int(causal), -1 if window is None else int(window),
+            float(1.0 / (D ** 0.5) if scale is None else scale),
+            _DTYPES[q.dtype], _lib.stream_ptr(q))
     _lib.check(lib, err, "flash_attention")
     _lib.count_launch("flash_attention")
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 under autograd. The forward is K4 (its plain version on CPU
+    tensors) and saves q, k and v; the backward recomputes
+    `attention_reference` on the same inputs and differentiates it with
+    `torch.autograd.grad`. This is the JAX package's training semantics:
+    its Pallas call has no rule for differentiation, so it trains through
+    the jnp oracle's autodiff. A backward kernel would be speed work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return _kernel_forward(q, k, v, causal, window, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = attention_reference(*ins, **ctx.opts)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(out, wrt, dout))
+        grads = [next(got) if n else None for n in need]
+        return (*grads, None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype (f32, f16 or bf16; softmax in f32, products in f32 for f32
+    inputs and in the input's type otherwise). `scale` overrides
+    1/sqrt(D).
+
+    On a CUDA tensor this launches K4; on a CPU tensor it runs
+    `flash_attention_plain`. A kernel launch counts one; the plain version
+    counts none. With grad mode on and an input that requires grad, the
+    call goes through `FlashAttentionFn`, whose backward differentiates
+    `attention_reference`.
+    """
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    return _kernel_forward(q, k, v, causal, window, scale)

@@ -78,6 +78,7 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor,
     counts one; the plain version counts none.
     """
     _check(x, w)
+    _lib.refuse_grad("gemm_int8", x, w, requant_mult)
     if x.device.type == "cpu":
         return gemm_int8_plain(x, w, requant_mult)
     if x.device.type != "cuda":
@@ -104,11 +105,12 @@ def gemm_int8(x: torch.Tensor, w: torch.Tensor,
         ws = split_workspace(x.device, "partials", n_ws).data_ptr()
         cnt = split_workspace(x.device, "counters", tiles).data_ptr()
     lib = _lib.load("gemm_int8")
-    err = lib.gemm_int8_launch(
-        x2.data_ptr(), w.data_ptr(),
-        None if mult is None else mult.data_ptr(),
-        1 if mult is None else mult.numel(), out.data_ptr(),
-        Mf, K, N, S, ws, cnt, _lib.stream_ptr(x))
+    with torch.cuda.device(x.device):
+        err = lib.gemm_int8_launch(
+            x2.data_ptr(), w.data_ptr(),
+            None if mult is None else mult.data_ptr(),
+            1 if mult is None else mult.numel(), out.data_ptr(),
+            Mf, K, N, S, ws, cnt, _lib.stream_ptr(x))
     _lib.check(lib, err, "gemm_int8")
     _lib.count_launch("gemm_int8")
     return out.reshape(*lead, M, N)

@@ -4,6 +4,8 @@ The CUDA kernel is `csrc/ssm_scan.cu` (it replaces the JAX package's
 `kernels/ssm_scan.py::ssm_scan_pallas`); `ssm_scan_plain` is its plain
 torch version, which the wrapper takes for CPU tensors only. `h0` seeds
 the carry (the decode path resumes from the cached state); None means 0.
+Under autograd the wrapper goes through `SsmScanFn`: K5 forward, the plain
+version's autograd backward.
 """
 
 from __future__ import annotations
@@ -39,9 +41,19 @@ def ssm_scan(a: torch.Tensor, x: torch.Tensor,
 
     On a CUDA tensor this launches K5; on a CPU tensor it runs
     `ssm_scan_plain`. A kernel launch counts one; the plain version counts
-    none.
+    none. With grad mode on and an input that requires grad, the call goes
+    through `SsmScanFn`, whose backward differentiates `ssm_scan_plain`.
     """
     _check(a, x, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, x, h0)):
+        return SsmScanFn.apply(a, x, h0)
+    return _kernel_forward(a, x, h0)
+
+
+def _kernel_forward(a, x, h0):
+    """K5 on CUDA tensors (one launch, counted), `ssm_scan_plain` on CPU
+    tensors."""
     if x.device.type == "cpu":
         return ssm_scan_plain(a, x, h0)
     if x.device.type != "cuda":
@@ -52,9 +64,35 @@ def ssm_scan(a: torch.Tensor, x: torch.Tensor,
     h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     lib = _lib.load("ssm_scan")
-    err = lib.ssm_scan_launch(a.data_ptr(), x.data_ptr(),
-                              None if h0 is None else h0.data_ptr(),
-                              y.data_ptr(), B, T, D, _lib.stream_ptr(x))
+    with torch.cuda.device(x.device):
+        err = lib.ssm_scan_launch(a.data_ptr(), x.data_ptr(),
+                                  None if h0 is None else h0.data_ptr(),
+                                  y.data_ptr(), B, T, D, _lib.stream_ptr(x))
     _lib.check(lib, err, "ssm_scan")
     _lib.count_launch("ssm_scan")
     return y
+
+
+class SsmScanFn(torch.autograd.Function):
+    """K5 under autograd. The forward is K5 (its plain version on CPU
+    tensors) and saves a, x and h0; the backward recomputes
+    `ssm_scan_plain` on the same inputs and differentiates it with
+    `torch.autograd.grad`, as `FlashAttentionFn` does for K4. A backward
+    kernel (the same recurrence run in reverse) would be speed work."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        ctx.save_for_backward(a, x, h0)
+        return _kernel_forward(a, x, h0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(saved, need)]
+            y = ssm_scan_plain(*ins)
+            wrt = [t for t, n in zip(ins, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, dy))
+        return tuple(next(got) if n else None for n in need)

@@ -10,6 +10,8 @@ The device count is the world size of the default process group, or 1 when
 no group is initialized (the counterpart of `len(jax.devices())`). A mesh
 smaller than the world is repeated: rank r belongs to mesh copy
 r // (pod * data * model), and every copy computes the same values.
+`make_production_mesh` builds the 16 x 16 or 2 x 16 x 16 mesh on a world of
+exactly that size.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ class HostMesh:
     model_index: int
     data_group: object = None
     model_group: object = None
+    dp_group: object = None        # pod x data, when the mesh has pods
 
     @property
     def size(self) -> int:
@@ -43,6 +46,26 @@ class HostMesh:
         for v in self.shape.values():
             n *= v
         return n
+
+    @property
+    def pod_index(self) -> int:
+        return (self.rank % self.size) // (self.shape["data"]
+                                           * self.shape["model"])
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's place among the data-parallel ranks (pod x data)."""
+        return self.pod_index * self.shape["data"] + self.data_index
+
+    @property
+    def dp_size(self) -> int:
+        return self.shape.get("pod", 1) * self.shape["data"]
+
+    @property
+    def data_parallel_group(self):
+        """The group of the data-parallel ranks (pod x data) that share
+        this rank's model index."""
+        return self.dp_group if "pod" in self.shape else self.data_group
 
     @property
     def distributed(self) -> bool:
@@ -112,7 +135,7 @@ def _build(shape: dict, data: int, model: int, product: int, world: int,
     keep this rank's two. Layout per copy: model fastest, then data, then
     pod, as `jax.make_mesh` orders the devices."""
     import torch.distributed as dist
-    mine_data = mine_model = None
+    mine_data = mine_model = mine_dp = None
     for base in range(0, world, product):
         for p in range(product // (data * model)):
             off = base + p * data * model
@@ -126,7 +149,30 @@ def _build(shape: dict, data: int, model: int, product: int, world: int,
                 grp = dist.new_group(ranks)
                 if rank in ranks:
                     mine_data = grp
+        if "pod" in shape:
+            for m in range(model):
+                ranks = list(range(base + m, base + product, model))
+                grp = dist.new_group(ranks)
+                if rank in ranks:
+                    mine_dp = grp
     local = rank % (data * model)
     return HostMesh(shape=shape, rank=rank, world=world,
                     data_index=local // model, model_index=local % model,
-                    data_group=mine_data, model_group=mine_model)
+                    data_group=mine_data, model_group=mine_model,
+                    dp_group=mine_dp)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The 16 x 16 single pod (256 ranks) or the 2 x 16 x 16 two-pod
+    (512 ranks) mesh. The world (the default process group's size, or 1)
+    must be exactly that many ranks: `ValueError` names it otherwise.
+    (The JAX package's `axis_types_kw` shim, which papers over jax
+    versions' mesh keywords, has no torch counterpart.)"""
+    pod, data, model = (2, 16, 16) if multi_pod else (0, 16, 16)
+    need = data * model * (pod or 1)
+    world = _world_size()
+    if world != need:
+        raise ValueError(
+            f"the production mesh {'2x16x16' if multi_pod else '16x16'} "
+            f"needs {need} ranks; the world has {world}")
+    return make_host_mesh(data=data, model=model, pod=pod)

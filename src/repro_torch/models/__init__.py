@@ -33,11 +33,20 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     dict whose leaves are numpy arrays, e.g. the JAX params mapped through
     `np.asarray`), on `device`, dtypes kept. The layouts are the same, so
     this is a tree map."""
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _leaf_from_numpy(node, device)
-    return conv(tree)
+    return _tree_from_numpy(tree, device)
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(tree, device="cuda"):
+    """The port's AdamW state from the JAX package's (`{"mu", "nu",
+    "step"}`, leaves as numpy arrays), on `device`: f32 moments and the
+    int32 step counter, as `train.init_opt_state` makes them."""
+    return _tree_from_numpy(tree, device)
 
 
 def params_to(params, device):
@@ -50,4 +59,4 @@ def params_to(params, device):
 __all__ = ["ModelConfig", "init_params", "forward_hidden", "encode",
            "decode_trunk", "prefill_step", "decode_step", "init_cache",
            "cache_spec", "train_loss", "chunked_xent", "params_from_numpy",
-           "params_to"]
+           "opt_state_from_numpy", "params_to"]

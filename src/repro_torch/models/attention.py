@@ -1,13 +1,16 @@
 """Attention blocks: GQA projections (optional QKV bias), RoPE, sliding
 window, and the execution paths of the JAX package's `models/attention.py`:
 
-  * `attend`             — prefill; routed by `kernels.ops.resolve_backend`
-                           on the tensors' device: a CUDA tensor goes to the
-                           K4 flash-attention kernel, a CPU tensor to the
-                           direct oracle (short sequences) or the blockwise
-                           online-softmax path (long ones;
-                           `attention_blockwise`, which is also K4's plain
-                           version);
+  * `attend`             — prefill and training; routed by
+                           `kernels.ops.resolve_backend` on the tensors'
+                           device: a CUDA tensor goes to the K4
+                           flash-attention kernel (under autograd through
+                           `FlashAttentionFn`: K4 forward, the plain
+                           attention's gradient backward), a CPU tensor to
+                           `attention_reference`: the direct oracle (short
+                           sequences) or the blockwise online-softmax path
+                           (long ones; `attention_blockwise`, which is also
+                           K4's plain version);
   * `decode_attend`      — one token per row against a fixed-size KV cache
                            with position masking; `pos` is a scalar or one
                            position per batch row (continuous batching);
@@ -26,7 +29,8 @@ from .layers import normal_init
 from .rope import apply_rope
 from ..kernels import ops as kops
 from ..kernels import ref
-from ..kernels.flash_attention import attention_blockwise
+from ..kernels.flash_attention import (  # noqa: F401 (re-exported)
+    BLOCKWISE_THRESHOLD, attention_blockwise, attention_reference)
 
 _NEG = ref.NEG
 
@@ -63,16 +67,17 @@ def qkv_proj(p, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def attend(q, k, v, *, causal=True, window=None, blockwise_threshold=4096):
+def attend(q, k, v, *, causal=True, window=None,
+           blockwise_threshold=BLOCKWISE_THRESHOLD):
     """Dispatch through `kernels.ops.resolve_backend`: the K4 kernel for
-    CUDA tensors, the direct oracle for short sequences on the CPU,
-    blockwise torch for long ones."""
-    Sq, Skv = q.shape[2], k.shape[2]
+    CUDA tensors (through its autograd Function when grad mode is on and
+    an input requires grad; launched directly otherwise), the direct
+    oracle for short sequences on the CPU, blockwise torch for long
+    ones (`blockwise_threshold` picks between the two on the CPU)."""
     if kops.resolve_backend(q) != "ref":
         return kops.flash_attention(q, k, v, causal=causal, window=window)
-    if max(Sq, Skv) <= blockwise_threshold:
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    return attention_blockwise(q, k, v, causal=causal, window=window)
+    return attention_reference(q, k, v, causal=causal, window=window,
+                               blockwise_threshold=blockwise_threshold)
 
 
 def quantize_kv(k):

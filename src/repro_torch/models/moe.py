@@ -150,9 +150,10 @@ def moe_apply_sorted_batched(p, x, cfg: ModelConfig):
 
 
 def moe_apply(p, x, cfg: ModelConfig):
-    """x (B, S, D) -> (B, S, D), plus the aux loss. The JAX package's
-    `_dp_constraint` sharding hint has no counterpart on one device (the
-    identity here; the distribution port adds placements)."""
+    """x (B, S, D) -> (B, S, D), plus the aux loss. (The JAX package's
+    `_dp_constraint`, a batch-dim layout hint for GSPMD, has no
+    counterpart: under explicit data parallelism each rank holds only its
+    own batch rows.)"""
     if cfg.moe_dispatch == "sorted":
         return moe_apply_sorted_batched(p, x, cfg)
     return moe_apply_onehot_batched(p, x, cfg)

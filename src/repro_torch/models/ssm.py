@@ -11,8 +11,9 @@ Structure per block:
 
 Decode (a carried state) and short prefills (S <= 8) run the recurrence on
 the flattened (channel, state) pairs through `kernels.ops.ssm_scan` (K5 on
-a CUDA tensor, its plain version on the CPU); longer prefills take the
-chunked SSD form (`_ssd_chunked`), plain torch as in the JAX package.
+a CUDA tensor, its plain version on the CPU; under autograd K5's forward
+and the plain version's gradient); longer prefills take the chunked SSD
+form (`_ssd_chunked`), plain torch as in the JAX package.
 """
 
 from __future__ import annotations

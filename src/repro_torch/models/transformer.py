@@ -3,22 +3,26 @@
 
 Every family exposes the JAX package's surface:
     init_params(cfg, generator, device) -> params (layers stacked on L)
+    train_loss(cfg)(params, batch) -> (loss, {"xent", "aux"})
     prefill_step(cfg)(params, batch, cache) -> (last_logits, cache)
     decode_step(cfg)(params, cache, tokens) -> (logits, cache)
 (the last two in `models/serve.py`). Parameters are the JAX package's
 nested dict of tensors with the layers stacked on a leading L axis, so the
 JAX package's params carry across leaf by leaf (`params_from_numpy`).
-Layers run in a Python loop over that axis (the JAX package's `lax.scan`).
-
-Not ported yet: the training surface (`train_loss`, `chunked_xent`), which
-raises `NotImplementedError` naming its ROADMAP.md item.
+Layers run in a Python loop over that axis (the JAX package's `lax.scan`),
+each stacked leaf unbound once per forward, so autograd stacks each leaf's
+gradient once. Under autograd `cfg.remat` checkpoints each layer
+(`_maybe_remat`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .attention import attend, attn_init, attn_out, qkv_proj
 from .config import ModelConfig
@@ -31,8 +35,6 @@ from .ssm import ssm_apply, ssm_init
 Params = Any
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")
-_TRAINING = ("training (train_loss, chunked_xent) waits for its port "
-             "(ROADMAP.md, queue 1, item 15)")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -45,6 +47,15 @@ def layer(tree, i: int):
     """Layer `i` of a tree of stacked (L, ...) tensors."""
     return {k: (layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def unstack(tree, n: int) -> list:
+    """The `n` layers of a tree of stacked (n, ...) tensors, each leaf
+    unbound once (views; under autograd one backward stacks the layers'
+    gradients, where indexing would add a full-size gradient per layer)."""
+    flat = {k: (unstack(v, n) if isinstance(v, dict) else torch.unbind(v))
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 def _slabs(tree, n: int):
@@ -154,12 +165,69 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 # -- block application ----------------------------------------------------------
 
+_NAME = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Name the values computed inside (the JAX package's
+    `checkpoint_name`): the "save_residuals" policy saves what is computed
+    under "residual1" and recomputes the rest."""
+    prev = getattr(_NAME, "name", None)
+    _NAME.name = name
+    try:
+        yield
+    finally:
+        _NAME.name = prev
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's `checkpoint_dots`: keep matrix products, recompute the rest."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_residual1(ctx, op, *args, **kwargs):
+    """JAX's `save_only_these_names("residual1")`."""
+    return (_ckpt.CheckpointPolicy.MUST_SAVE
+            if getattr(_NAME, "name", None) == "residual1"
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """`fn` (one layer) under `cfg.remat` when autograd records: "none"
+    keeps every activation, "dots" and "save_residuals" keep the matrix
+    products or the dense block's post-attention residual and recompute
+    the rest in the backward (selective checkpointing), anything else
+    ("full") recomputes the whole layer. Without grad mode `fn` runs as
+    it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    policy = {"dots": _save_dots,
+              "save_residuals": _save_residual1}.get(cfg.remat)
+    if policy is None:
+        return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False)
+    ctx = lambda: _ckpt.create_selective_checkpoint_contexts(policy)
+    return lambda *a: _ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                       context_fn=ctx)
+
+
 def _dense_block(pl_, x, cfg: ModelConfig, positions, window):
     _, norm = make_norm(cfg.norm)
     h = norm(pl_["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_proj(pl_["attn"], h, cfg, positions)
     o = attend(q, k, v, causal=True, window=window)
-    x = x + attn_out(pl_["attn"], o, cfg)
+    a = attn_out(pl_["attn"], o, cfg)
+    # The JAX package pins the residual stream to (dp, None, None) here
+    # and below (`constrain_residual`), a layout hint for GSPMD; under
+    # explicit data parallelism each rank holds only its own batch rows,
+    # so the port has nothing to pin.
+    with checkpoint_name("residual1"):
+        x = x + a
     h = norm(pl_["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(pl_["mlp"], h, cfg.act)
 
@@ -203,52 +271,68 @@ def forward_hidden(cfg: ModelConfig, params: Params, x, positions):
     (the routers' summed over layers for moe, 0 otherwise). The decoder-only
     families; encdec runs `encode` and `decode_trunk`."""
     check_family(cfg)
+    layers = unstack(params["layers"], cfg.num_layers)
     if cfg.family == "dense":
-        for i in range(cfg.num_layers):
-            x = _dense_block(layer(params["layers"], i), x, cfg, positions,
-                             cfg.sliding_window)
+        body = _maybe_remat(lambda pl_, h: _dense_block(
+            pl_, h, cfg, positions, cfg.sliding_window), cfg)
+        for pl_ in layers:
+            x = body(pl_, x)
         return x, 0.0
     if cfg.family == "moe":
+        body = _maybe_remat(lambda pl_, h: _moe_block(pl_, h, cfg,
+                                                      positions), cfg)
         aux = 0.0
-        for i in range(cfg.num_layers):
-            x, a = _moe_block(layer(params["layers"], i), x, cfg, positions)
+        for pl_ in layers:
+            x, a = body(pl_, x)
             aux = aux + a
         return x, aux
     if cfg.family == "ssm":
-        for i in range(cfg.num_layers):
-            x, _ = _rwkv_block(layer(params["layers"], i), x, cfg)
+        body = _maybe_remat(lambda pl_, h: _rwkv_block(pl_, h, cfg)[0], cfg)
+        for pl_ in layers:
+            x = body(pl_, x)
         return x, 0.0
     if cfg.family != "hybrid":
         raise ValueError(cfg.family)
     period = max(1, cfg.attn_every)
-    for i in range(cfg.num_layers):
-        x = _ssm_block(layer(params["layers"], i), x, cfg)
-        if i % period == period - 1:
-            x = _dense_block(params["shared_attn"], x, cfg, positions, None)
+
+    def hybrid(pl_, h, shared):
+        h = _ssm_block(pl_, h, cfg)
+        if shared is not None:
+            h = _dense_block(shared, h, cfg, positions, None)
+        return h
+
+    body = _maybe_remat(hybrid, cfg)
+    for i, pl_ in enumerate(layers):
+        x = body(pl_, x, params["shared_attn"]
+                 if i % period == period - 1 else None)
     return x, 0.0
 
 
 def encode(cfg: ModelConfig, params: Params, x_enc, positions):
     """Bidirectional encoder trunk (encdec family)."""
     _, norm = make_norm(cfg.norm)
-    for i in range(cfg.enc_layers):
-        pl_ = layer(params["enc_layers"], i)
-        z = norm(pl_["ln1"], x_enc, cfg.norm_eps)
+
+    def enc_block(pl_, h):
+        z = norm(pl_["ln1"], h, cfg.norm_eps)
         q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
         o = attend(q, k, v, causal=False)
-        x_enc = x_enc + attn_out(pl_["attn"], o, cfg)
-        z = norm(pl_["ln2"], x_enc, cfg.norm_eps)
-        x_enc = x_enc + mlp_apply(pl_["mlp"], z, cfg.act)
+        h = h + attn_out(pl_["attn"], o, cfg)
+        z = norm(pl_["ln2"], h, cfg.norm_eps)
+        return h + mlp_apply(pl_["mlp"], z, cfg.act)
+
+    body = _maybe_remat(enc_block, cfg)
+    for pl_ in unstack(params["enc_layers"], cfg.enc_layers):
+        x_enc = body(pl_, x_enc)
     return norm(params["enc_final_norm"], x_enc, cfg.norm_eps)
 
 
 def decode_trunk(cfg: ModelConfig, params: Params, x_dec, enc_out,
                  positions, enc_positions):
     """Causal decoder with cross-attention (encdec family)."""
-    for i in range(cfg.dec_layers):
-        pl_ = layer(params["dec_layers"], i)
-        x_dec, _ = _dec_block(pl_, x_dec, enc_out, cfg, positions,
-                              enc_positions)
+    body = _maybe_remat(lambda pl_, h, enc: _dec_block(
+        pl_, h, enc, cfg, positions, enc_positions)[0], cfg)
+    for pl_ in unstack(params["dec_layers"], cfg.dec_layers):
+        x_dec = body(pl_, x_dec, enc_out)
     return x_dec
 
 
@@ -270,21 +354,32 @@ def _dec_block(pl_, h, enc_out, cfg: ModelConfig, positions, enc_positions):
     return h + mlp_apply(pl_["mlp"], z, cfg.act), (k, v, kx, vx)
 
 
-def train_loss(cfg: ModelConfig):
-    """The JAX package's training loss: not ported yet."""
-    raise NotImplementedError(f"{cfg.name}: {_TRAINING}")
-
-
-def chunked_xent(cfg: ModelConfig, params: Params, hidden, labels,
-                 chunk: int = 512):
-    """The JAX package's vocab-chunked cross-entropy: not ported yet."""
-    raise NotImplementedError(f"{cfg.name}: {_TRAINING}")
-
-
 def _unembed_weight(cfg: ModelConfig, params: Params):
     if cfg.tie_embeddings:
         return params["embed"]["table"].T
     return params["lm_head"]["w"]
+
+
+def chunked_xent(cfg: ModelConfig, params: Params, hidden, labels,
+                 chunk: int = 512):
+    """Cross-entropy over the vocab without materializing (B, S, V)
+    logits: the sequence in chunks of `chunk` positions (the last padded,
+    its labels -1), logits in f32 per chunk, the mean over labels >= 0."""
+    B, S, D = hidden.shape
+    W = _unembed_weight(cfg, params)
+    c = min(chunk, S)
+    tot = cnt = 0.0
+    for s0 in range(0, S, c):
+        h = hidden[:, s0:s0 + c]
+        lab = labels[:, s0:s0 + c]
+        logits = (h @ W).float()                                # (B,c,V)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          torch.clamp(lab, min=0)[..., None].long())[..., 0]
+        valid = (lab >= 0).float()
+        tot = tot + torch.sum((logz - ll) * valid)
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def _embed_with_frontend(cfg: ModelConfig, params: Params, batch):
@@ -294,3 +389,37 @@ def _embed_with_frontend(cfg: ModelConfig, params: Params, batch):
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
     return x
 
+
+def train_loss(cfg: ModelConfig):
+    """Returns loss_fn(params, batch) -> (loss, {"xent", "aux"}): the
+    vocab-chunked cross-entropy of the final hidden states plus 0.01 x the
+    moe routers' aux loss (0 for the other families)."""
+    check_family(cfg)
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        labels = batch["labels"]
+        B, S = tokens.shape
+        dev = tokens.device
+        positions = torch.arange(S, device=dev)
+        if cfg.family == "encdec":
+            src = batch["src_tokens"]
+            x_enc = embed_apply(params["embed"], src)
+            if cfg.frontend is not None and "frontend_embeds" in batch:
+                fe = batch["frontend_embeds"].to(x_enc.dtype)
+                x_enc = torch.cat([fe, x_enc[:, fe.shape[1]:]], dim=1)
+            enc_pos = torch.arange(src.shape[1], device=dev)
+            enc_out = encode(cfg, params, x_enc, enc_pos)
+            x = embed_apply(params["embed"], tokens)
+            h = decode_trunk(cfg, params, x, enc_out, positions, enc_pos)
+            aux = 0.0
+        else:
+            x = _embed_with_frontend(cfg, params, batch)
+            h, aux = forward_hidden(cfg, params, x, positions)
+        _, norm = make_norm(cfg.norm)
+        h = norm(params["final_norm"], h, cfg.norm_eps)
+        xent = chunked_xent(cfg, params, h, labels)
+        loss = xent + 0.01 * aux
+        return loss, {"xent": xent, "aux": aux}
+
+    return loss_fn

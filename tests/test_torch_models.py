@@ -303,12 +303,25 @@ def test_params_from_numpy_keeps_bfloat16_bits():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_training_surface_raises_naming_item_15(arch):
-    """Every family serves; the training surface waits for its port."""
+    """Every family serves and has the training surface: `train_loss`
+    builds a loss function, and `chunked_xent` (here over chunks of 5
+    positions, the last one padded) equals the JAX package's within rtol
+    1e-6 on the same float32 inputs. (Before the training port both
+    raised NotImplementedError naming ROADMAP item 15.)"""
+    from repro.models.transformer import chunked_xent as jchunked_xent
     cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_loss(cfg)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        chunked_xent(cfg, {}, torch.zeros(1, 2, cfg.d_model),
-                     torch.zeros(1, 2, dtype=torch.long))
+    assert callable(train_loss(cfg))
+    rng = np.random.default_rng(2)
+    h = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    labels = rng.integers(-1, cfg.vocab_size, (2, 12))
+    w = (rng.standard_normal((cfg.d_model, cfg.vocab_size)) * 0.05
+         ).astype(np.float32)
+    params = ({"embed": {"table": w.T.copy()}} if cfg.tie_embeddings
+              else {"lm_head": {"w": w}})
+    got = chunked_xent(cfg, jax.tree.map(torch.as_tensor, params),
+                       torch.as_tensor(h), torch.as_tensor(labels), chunk=5)
+    want = jchunked_xent(cfg, jax.tree.map(jnp.asarray, params),
+                         jnp.asarray(h), jnp.asarray(labels), chunk=5)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     assert JConfig.__dataclass_fields__.keys() == \
         ModelConfig.__dataclass_fields__.keys()
