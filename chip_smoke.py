@@ -108,7 +108,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      gloo (this script with `--train-rank`; 4 layers, float32, zero1:
      both ranks' params bit-equal and within rtol 1e-4 of one rank); a
      step's K4 launches (counters and profiler), median time, tokens/s,
-     idle share, peak memory and share of the bf16 peak.
+     idle share, peak memory and share of the bf16 peak;
+ 12. tensor parallelism and the dry run: smollm-135M at full width (4 of
+     30 layers, float32) on the (1, 3) model mesh as three processes on
+     the card over gloo (this script with `--tp-rank`; 3 q heads and 1 kv
+     head a rank): two ZeRO-1 train steps (whole-gathered leaves within
+     rtol 1e-4 of one rank, replicated leaves bit-equal across ranks) and
+     a prefill plus 2 decode steps (logits within rtol 1e-3, greedy
+     tokens equal), K4 per rank per step (counters and profiler); the dry
+     run (`launch.dryrun.lower_cell`, --device cuda) of smollm-135m
+     train_4k at B 8 on the 1 x 1 mesh against the same step on the card
+     (argument bytes and per-device FLOPs equal, predicted memory and the
+     roofline bound printed beside the measured ones); and two full-size
+     production cells through `python -m repro_torch.launch.dryrun` on
+     the host (smollm-135m train_4k on 16 x 16, zamba2-1.2b decode_32k on
+     2 x 16 x 16) with their seconds.
 
 Each LM phase takes its admission period from the modeled bound it
 prints, and prints its seconds and peak device memory. Then a `[phases]`
@@ -2346,29 +2360,8 @@ def two_process_train(torch, np) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.tree import leaves
     work = ROOT / "build" / "train_two_process"
-    if work.exists():
-        for f in work.iterdir():
-            f.unlink()
-    work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--train-rank",
-         str(r), "2", str(work)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
-    except subprocess.TimeoutExpired:
-        fail("[train] a rank of the (2, 1) mesh did not finish in 300 s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if any(p.returncode != 0 for p in procs):
-        fail("[train] the (2, 1) data mesh failed:\n" + "\n".join(
-            log[-3000:] for log in logs))
+    _spawn_ranks("--train-rank", 2, work, 300)
     secs = time.perf_counter() - t0
     ranks = [np.load(work / f"rank{r}.npz") for r in range(2)]
     cfg = _train_mesh_cfg()
@@ -2712,6 +2705,442 @@ def train_phase(torch, np, kernels, report, smi) -> int:
         f"torch.cuda.max_memory_allocated "
         f"{out['max_memory_allocated_gb']:.1f} GB")
     return k4_main
+
+
+# -- 12. tensor parallelism on the card, and the dry run against it ----------
+
+# the (1, 3) model mesh of phase 12a: three processes on the one card
+TP_WORLD, TP_LAYERS, TP_B, TP_S, TP_STEPS, TP_NEW = 3, 4, 8, 128, 2, 2
+# a first AdamW step maps a gradient g to about g / (|g| + eps): at the
+# default eps 1e-8 a gradient that is 0 in exact arithmetic or a few 1e-9
+# turns the summation order's rounding into a large part of a step, so the
+# comparison takes eps 1e-3 (the gradients themselves, in the moments, are
+# compared at the same tolerance); the same steps at the default eps are
+# run too and their largest disagreement printed, not held
+TP_EPS, DEFAULT_EPS = 1e-3, 1e-8
+
+
+def _tp_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("smollm-135m"), dtype="float32",
+                               num_layers=TP_LAYERS)
+
+
+def _tp_run(mesh, profile: bool = False) -> dict:
+    """Phase 12a's run on this rank of `mesh`: TP_STEPS ZeRO-1 train steps,
+    a prefill and TP_NEW greedy decode steps of smollm-135M (full width,
+    TP_LAYERS layers, float32) on the card, every result gathered whole;
+    this rank's replicated leaves and its K4 launches per step."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.distribution.context import with_mesh_context
+    from repro_torch.distribution.sharding import (NamedSharding, P,
+                                                   cache_shardings)
+    from repro_torch.kernels import _lib
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.loop import build_state, sharded_train_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import flatten_with_path, path_str, tree_map
+    cfg = _tp_cfg()
+    whole = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    params, opt, (ps, os_) = build_state(cfg, mesh, params=whole,
+                                         device="cuda")
+    step = sharded_train_step(cfg, mesh, OptConfig(
+        total_steps=10, warmup_steps=1, eps=TP_EPS), ps, os_)
+    ds = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=TP_S,
+                                    global_batch=TP_B, seed=SEED))
+    out, k4 = {}, []
+    for i in range(TP_STEPS):
+        batch = {k: torch.as_tensor(v).cuda() for k, v in
+                 ds.batch(i).items()}
+        _lib.reset_launch_counts()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        k4.append(_lib.launch_counts()["flash_attention"])
+        out[f"loss{i}"] = np.array(float(m["loss"]))
+        out[f"grad_norm{i}"] = np.array(float(m["grad_norm"]))
+    if profile:
+        # every rank profiles the same steps (the step's collectives);
+        # the step is pure, so the state stays as it was
+        before = [x.clone() for x in _leaves(params)]
+        by, busy, wall, names = profile_once(
+            torch, lambda: step(params, opt, batch))
+        out["profiler_k4"] = np.array(
+            sum("flash_attention_kernel" in n for n in names))
+        if not all(torch.equal(a, b) for a, b in zip(before,
+                                                     _leaves(params))):
+            fail("[tp] a train step changed its input params in place")
+    for pth, x in flatten_with_path(tree_map(lambda s_, x_: s_.gather(x_),
+                                             ps, params)):
+        out["p/" + path_str(pth)] = x.float().cpu().numpy()
+    for pth, x in flatten_with_path(tree_map(lambda s_, x_: s_.gather(x_),
+                                             os_["mu"], opt["mu"])):
+        out["mu/" + path_str(pth)] = x.float().cpu().numpy()
+    for (pth, x), s_ in zip(flatten_with_path(params),
+                            [s_ for _, s_ in flatten_with_path(ps)]):
+        if not s_.cuts():
+            out["local/" + path_str(pth)] = x.float().cpu().numpy()
+    out["k4_train"] = np.array(k4)
+    # the same steps at AdamW's default eps (printed, not held)
+    params, opt, _ = build_state(cfg, mesh, params=whole, device="cuda")
+    step = sharded_train_step(cfg, mesh, OptConfig(
+        total_steps=10, warmup_steps=1, eps=DEFAULT_EPS), ps, os_)
+    for i in range(TP_STEPS):
+        params, opt, _ = step(params, opt, {
+            k: torch.as_tensor(v).cuda() for k, v in ds.batch(i).items()})
+    for pth, x in flatten_with_path(tree_map(lambda s_, x_: s_.gather(x_),
+                                             ps, params)):
+        out["eps8/" + path_str(pth)] = x.float().cpu().numpy()
+    del params, opt, step
+    rng = np.random.default_rng(SEED + 12)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_B, TP_S)),
+                              device="cuda")
+    cache = init_cache(cfg, TP_B, TP_S + 8, device="cuda")
+    cs = cache_shardings(cfg, mesh, cache)
+    p_loc = tree_map(lambda s_, x_: s_.shard(x_.cuda()), ps, whole)
+    c_loc = {k: cs[k].shard(v) for k, v in cache.items()}
+    rows = NamedSharding(mesh, P())
+    _lib.reset_launch_counts()
+    with torch.no_grad(), with_mesh_context(mesh, params=ps, cache=cs):
+        logits, c_loc = prefill_step(cfg)(p_loc, {"tokens": prompts}, c_loc)
+        torch.cuda.synchronize()
+        out["k4_prefill"] = np.array(_lib.launch_counts()["flash_attention"])
+        for i in range(TP_NEW + 1):
+            out[f"logits{i}"] = rows.gather(logits).float().cpu().numpy()
+            if i == TP_NEW:
+                break
+            tok = torch.argmax(logits[:, -1], -1, keepdim=True)
+            out[f"tokens{i}"] = tok.cpu().numpy()
+            logits, c_loc = decode_step(cfg)(p_loc, c_loc, tok)
+    return out
+
+
+def tp_rank_main(rank: int, world: int, work: Path) -> None:
+    """One rank of phase 12a (run as `chip_smoke.py --tp-rank R W DIR`):
+    join a gloo group on the card and run `_tp_run` on the (1, W) model
+    mesh."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work}/rendezvous", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=180))
+    from repro_torch.launch.mesh import make_host_mesh
+    out = _tp_run(make_host_mesh(data=1, model=world), profile=True)
+    np.savez(work / f"rank{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(flag: str, world: int, work: Path, timeout: int):
+    """Start `world` processes of this script with `flag R world work`
+    together; fail with their output if one does not end well."""
+    if work.exists():
+        for f in work.iterdir():
+            f.unlink()
+    work.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
+         str(world), str(work)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{flag}: a rank did not finish in {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        fail(f"{flag}: a rank failed:\n" + "\n".join(
+            log[-3000:] for log in logs))
+    return logs
+
+
+def _dryrun_cli(args: list) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+         "--out", str(ROOT / "build" / "dryrun_smoke.jsonl")],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def tp_phase(torch, np, kernels, report, smi, parts: str = "abc") -> int:
+    """Phase 12 (its sub-phases `parts`). Returns K4's launches on phase
+    12a's tensor-parallel path (all ranks: the train steps and the
+    prefill)."""
+    out = report.setdefault("tp", {})
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # (c) starts first: two production cells on the host, beside the rest
+    cells = {"smollm-135m train_4k 16x16": _dryrun_cli(
+                 ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh",
+                  "single"]),
+             "zamba2-1.2b decode_32k 2x16x16": _dryrun_cli(
+                 ["--arch", "zamba2-1.2b", "--shape", "decode_32k",
+                  "--mesh", "multi"])} if "c" in parts else {}
+    t_cells = time.perf_counter()
+    k4_path = 0
+    if "a" in parts:
+        k4_path = _tp_mesh_check(torch, np, kernels, out, smi)
+    if "b" in parts:
+        _dryrun_check(torch, np, kernels, out, smi)
+    for name, p in cells.items():
+        out.setdefault("cells", {})[name] = _production_cell(name, p)
+    out["cells_wall_s"] = time.perf_counter() - t_cells
+    out["phase_s"] = time.perf_counter() - t_phase
+    return k4_path
+
+
+def k4_against_plain(torch, kernels, out, tag, shape, dtype, atol,
+                     rtol) -> float:
+    """K4 against its plain version on card tensors of `dtype` at the
+    causal shape (B, Hq, Hkv, S, D) that a phase-12 path gives it; fail
+    outside atol/rtol. Adds the error to K4's max_abs_err."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, Hq, Hkv, S, D = shape
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    q, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dtype)
+               for s_ in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+    got = flash_attention(q, k, v).float()
+    want = flash_attention_plain(q, k, v).float()
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=atol, rtol=rtol):
+        fail(f"[{tag}] K4 {shape} causal {dtype} disagrees with its plain "
+             f"version (max abs err {err}, atol {atol}, rtol {rtol})")
+    k4 = kernels["flash_attention"]
+    k4["max_abs_err"] = max(k4["max_abs_err"], err)
+    out.setdefault("k4_against_plain", []).append(
+        {"shape": list(shape), "dtype": str(dtype), "max_abs_err": err,
+         "atol": atol, "rtol": rtol})
+    say(f"[{tag}] K4 at this path's shape {shape} causal {dtype}: max abs "
+        f"err {err:.3g} against the plain version (atol {atol}, rtol "
+        f"{rtol})")
+    del q, k, v, got, want
+    return err
+
+
+def _tp_mesh_check(torch, np, kernels, out, smi) -> int:
+    """Phase 12a: the (1, 3) model mesh, three processes on the card."""
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "tp_three_process"
+    _spawn_ranks("--tp-rank", TP_WORLD, work, 420)
+    ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(TP_WORLD)]
+    secs = time.perf_counter() - t0
+    want = _tp_run(make_host_mesh(1, 1))
+    worst = {"train": 0.0, "logits": 0.0}
+    bad = []
+    for r, got in enumerate(ranks):
+        for k, w in want.items():
+            if k.startswith(("p/", "mu/", "logits")):
+                scale = float(np.abs(w).max()) or 1.0
+                err = float(np.abs(got[k] - w).max())
+                train = k.startswith(("p/", "mu/"))
+                worst["train" if train else "logits"] = max(
+                    worst["train" if train else "logits"], err / scale)
+                tol = (1e-4, 1e-5) if train else (1e-3, 1e-3)
+                if not np.allclose(got[k], w, rtol=tol[0],
+                                   atol=tol[1] * scale):
+                    bad.append(f"rank {r} {k}: max abs err {err:.3g} "
+                               f"(max |x| {scale:.3g})")
+            elif k.startswith(("tokens", "loss", "grad_norm")) and \
+                    not np.allclose(got[k], w, rtol=1e-5, atol=0):
+                bad.append(f"rank {r} {k}: {got[k].ravel()[:8]} vs one "
+                           f"rank's {w.ravel()[:8]}")
+        for k in got:
+            if k.startswith("local/") and not np.array_equal(
+                    got[k], ranks[0][k]):
+                bad.append(f"replicated leaf {k} differs between ranks 0 "
+                           f"and {r}")
+    if bad:
+        fail(f"[tp] {len(bad)} disagreements with one rank:\n  "
+             + "\n  ".join(bad[:24]))
+    per_step = [int(x) for x in ranks[0]["k4_train"]]
+    prof = int(ranks[0]["profiler_k4"])
+    # 4 layers forward and 4 in the full remat's recomputation, each on
+    # the rank's 3 q heads and 1 kv head
+    if any(int(r_["k4_train"][i]) != 2 * TP_LAYERS for r_ in ranks
+           for i in range(TP_STEPS)) or prof != 2 * TP_LAYERS:
+        fail(f"[tp] K4 launches per rank per step: counters "
+             f"{[list(r_['k4_train']) for r_ in ranks]}, profiler {prof}, "
+             f"want {2 * TP_LAYERS}")
+    if any(int(r_["k4_prefill"]) != TP_LAYERS for r_ in ranks):
+        fail(f"[tp] K4 launches per prefill: "
+             f"{[int(r_['k4_prefill']) for r_ in ranks]}, want {TP_LAYERS}")
+    k4_path = sum(int(r_["k4_train"].sum()) + int(r_["k4_prefill"])
+                  for r_ in ranks)
+    # the default eps: the leaf that disagrees most with one rank
+    eps8 = {"eps": DEFAULT_EPS, "err_over_max": -1.0}
+    for r, got in enumerate(ranks):
+        for k, w in want.items():
+            if not k.startswith("eps8/"):
+                continue
+            scale = float(np.abs(w).max()) or 1.0
+            err = float(np.abs(got[k] - w).max())
+            if err / scale > eps8["err_over_max"]:
+                eps8.update(leaf=k[5:], rank=r, max_abs_err=err,
+                            err_over_max=err / scale,
+                            outside_tolerance=int(np.sum(~np.isclose(
+                                got[k], w, rtol=1e-4, atol=1e-5 * scale))))
+    out["default_eps"] = eps8
+    say(f"[tp] the same {TP_STEPS} train steps at AdamW eps {DEFAULT_EPS} "
+        f"(not held): largest disagreement with one rank in {eps8['leaf']} "
+        f"(rank {eps8['rank']}), max abs err {eps8['max_abs_err']:.3g} = "
+        f"{eps8['err_over_max']:.3g} of its max, "
+        f"{eps8['outside_tolerance']} elements outside rtol 1e-4 / atol "
+        f"1e-5 x max")
+    # K4 at the shape each rank gives it: its 3 q heads and 1 kv head
+    cfg = _tp_cfg()
+    k4_against_plain(torch, kernels, out, "tp", (
+        TP_B, cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD, TP_S,
+        cfg.hd), torch.float32, 3e-5, 1e-4)
+    out["mesh"] = {"seconds": secs, "worst_rel": worst,
+                   "k4_per_rank_step": per_step, "profiler_k4": prof,
+                   "losses": [float(ranks[0][f"loss{i}"])
+                              for i in range(TP_STEPS)]}
+    say(f"[tp] (1, {TP_WORLD}) model mesh, {TP_WORLD} processes on the card "
+        f"over gloo, smollm-135m full width ({TP_LAYERS} of 30 layers, "
+        f"float32, 3 q heads and 1 kv head a rank), zero1, B {TP_B} S "
+        f"{TP_S}: {TP_STEPS} train steps, whole-gathered leaves within rtol "
+        f"1e-4 of one rank (largest err / max|leaf| {worst['train']:.3g}), "
+        f"replicated leaves bit-equal across ranks; prefill + {TP_NEW} "
+        f"decode steps: logits within rtol 1e-3 (largest err / max|logit| "
+        f"{worst['logits']:.3g}), greedy tokens equal; K4 per rank per step "
+        f"{per_step} (counters), {prof} (profiler), {TP_LAYERS} per prefill; "
+        f"{secs:.1f} s with start-up; {smi}")
+    free(torch, out)
+    return k4_path
+
+
+def _dryrun_check(torch, np, kernels, out, smi) -> None:
+    """Phase 12b: the dry run of a training cell against the same step on
+    the card."""
+    from repro_torch.configs import SHAPES, get_config, input_specs
+    from repro_torch.launch.analysis import analyze_counted, model_flops_for
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.hlo_count import OpCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.loop import build_state, sharded_train_step
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_config("smollm-135m")
+    mesh = make_host_mesh(1, 1)
+    t0 = time.perf_counter()
+    low = lower_cell(cfg, "train_4k", mesh, scale_batch=8 / 256,
+                     device="cuda")
+    dry_s = time.perf_counter() - t0
+    params, opt, (ps, os_) = build_state(cfg, mesh, seed=SEED,
+                                         device="cuda")
+    spec = input_specs(cfg, "train_4k", scale_batch=8 / 256)["batch"]
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    batch = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32) for k, v in spec.items()}
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in _leaves(tree))
+    arg_bytes = nbytes(params) + nbytes(opt["mu"]) + nbytes(opt["nu"]) + \
+        opt["step"].numel() * opt["step"].element_size() + nbytes(batch)
+    if arg_bytes != low.memory["argument_bytes_per_dev"]:
+        fail(f"[dryrun] argument bytes: dry run "
+             f"{low.memory['argument_bytes_per_dev']}, card {arg_bytes}")
+    step = sharded_train_step(cfg, mesh, OptConfig(), ps, os_,
+                              low.microbatches)
+    step(params, opt, batch)
+    torch.cuda.synchronize()
+    with OpCounter() as c:
+        c.ignore((params, opt, batch))
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    if c.cost.flops != low.cost.flops:
+        top = sorted(set(c.by_op) | set(low.by_op), key=lambda k: -abs(
+            c.by_op.get(k, 0) - low.by_op.get(k, 0)))[:6]
+        fail(f"[dryrun] FLOPs per device: dry run {low.cost.flops}, card "
+             f"{c.cost.flops}; ops that differ most: " + ", ".join(
+                 f"{k} {low.by_op.get(k, 0)} vs {c.by_op.get(k, 0)}"
+                 for k in top))
+    if "repro_torch.flash_attention" not in c.by_op:
+        fail("[dryrun] the card's step never reached K4's custom op")
+    # K4 at the shape this step gives it: one microbatch's rows, bf16
+    k4_against_plain(torch, kernels, out, "dryrun", (
+        8 // low.microbatches, cfg.num_heads, cfg.num_kv_heads,
+        SHAPES["train_4k"].seq_len, cfg.hd),
+        cfg.torch_dtype, 2e-2, 1e-2)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    roof = analyze_counted("smollm-135m", "train_4k", "1x1", low.cost,
+                           model_flops_for(cfg, SHAPES["train_4k"],
+                                           cfg.active_param_count()), 1)
+    mem = low.memory
+    pred_peak = (mem["argument_bytes_per_dev"] + mem["temp_bytes_per_dev"]
+                 + mem["output_bytes_per_dev"])
+    out["dryrun"] = {
+        "seconds": dry_s, "argument_bytes": arg_bytes,
+        "flops": c.cost.flops, "microbatches": low.microbatches,
+        "k4_flops": c.by_op["repro_torch.flash_attention"],
+        "predicted_temp_bytes": mem["temp_bytes_per_dev"],
+        "predicted_peak_bytes": pred_peak, "arguments_on_card": base,
+        "max_memory_allocated": peak, "step_ms": step_ms, "times_ms": times,
+        "bound_ms": roof.bound_s * 1e3, "dominant": roof.dominant,
+        "terms_ms": {"compute": roof.t_compute * 1e3,
+                     "memory": roof.t_memory * 1e3,
+                     "collective": roof.t_collective * 1e3}}
+    say(f"[dryrun] smollm-135m train_4k on the 1 x 1 mesh, B 8 S 4096, "
+        f"{low.microbatches} microbatches, --device cuda ({dry_s:.1f} s on "
+        f"the host): argument bytes {arg_bytes} equal on the card; FLOPs "
+        f"per device {c.cost.flops:.6g} equal on the card (K4's formula "
+        f"{c.by_op['repro_torch.flash_attention']:.6g})")
+    say(f"[dryrun] memory: predicted temp "
+        f"{mem['temp_bytes_per_dev'] / 1e9:.3f} GB, predicted peak {pred_peak / 1e9:.3f} GB; on the card "
+        f"arguments {base / 1e9:.3f} GB, torch.cuda.max_memory_allocated "
+        f"{peak / 1e9:.3f} GB; {smi}")
+    say(f"[dryrun] time: H100 roofline bound {roof.bound_s * 1e3:.2f} ms "
+        f"({roof.dominant}; compute {roof.t_compute * 1e3:.2f}, memory "
+        f"{roof.t_memory * 1e3:.2f} ms) against the measured step "
+        f"{step_ms:.2f} ms (median of 3); {smi}")
+    del params, opt, step, batch
+    free(torch, out)
+
+
+def _production_cell(name: str, p: subprocess.Popen) -> dict:
+    """Phase 12c: one full-size production cell of the dry run's CLI
+    (started at the phase's beginning), on the host."""
+    try:
+        so, se = p.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        fail(f"[dryrun] {name}: no result in 600 s")
+    recs = [json.loads(x) for x in so.splitlines() if x.startswith("{")]
+    if p.returncode != 0 or not recs or recs[-1]["status"] != "ok":
+        fail(f"[dryrun] {name}: rc {p.returncode}: {so[-1500:]}"
+             f"{se[-1500:]}")
+    rec = recs[-1]
+    r_ = rec["roofline"]
+    say(f"[dryrun] {name}: ok in {rec['compile_s']} s; per device "
+        f"arguments {rec['memory']['argument_bytes_per_dev'] / 1e9:.3f} "
+        f"GB, temp {rec['memory']['temp_bytes_per_dev'] / 1e9:.3f} GB, "
+        f"compute {r_['t_compute_s'] * 1e3:.3f} ms, memory "
+        f"{r_['t_memory_s'] * 1e3:.3f} ms, collective "
+        f"{r_['t_collective_s'] * 1e3:.3f} ms ({r_['dominant']})")
+    return rec
 
 
 def _leaves(tree):
@@ -3324,6 +3753,10 @@ def main() -> None:
     train_k4 = train_phase(torch, np, kernels, report, smi)
     clock.lap("11 train")
 
+    # -- 12. tensor parallelism on the card and the dry run ------------------
+    tp_k4 = tp_phase(torch, np, kernels, report, smi)
+    clock.lap("12 tensor parallel")
+
     # -- result lines ---------------------------------------------------------
     where = {
         "gemm_int8": ("src/repro_torch/csrc/gemm_int8.cu",
@@ -3347,10 +3780,12 @@ def main() -> None:
                 **{k: lm_counts[k] + sum(c[k] for c in family_counts.values())
                    for k in LM_KERNELS},
                 "tiled_int8": k6_launches}
-    launches["flash_attention"] += train_k4
+    launches["flash_attention"] += train_k4 + tp_k4
     report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts,
                                   "train smollm-135m": {
-                                      "flash_attention": train_k4}}
+                                      "flash_attention": train_k4},
+                                  "tensor parallel smollm-135m (1, 3)": {
+                                      "flash_attention": tp_k4}}
     line = {"kernels": []}
     for k in _lib.KERNELS:
         kd = kernels[k]
@@ -3380,5 +3815,7 @@ if __name__ == "__main__":
     elif sys.argv[1:2] == ["--train-rank"]:
         train_rank_main(int(sys.argv[2]), int(sys.argv[3]),
                         Path(sys.argv[4]))
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     else:
         main()

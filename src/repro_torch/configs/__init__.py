@@ -1,15 +1,16 @@
 """Architecture registry: the 10 assigned archs (+ paper-native CNNs).
 
 Usage:  cfg = get_config("zamba2-1.2b");  red = get_config("zamba2-1.2b",
-reduced=True). The config files are the JAX package's, as pure data.
-
-The input-shape cells of the dry-run tooling (`configs/shapes.py` in the
-JAX package) are not ported yet (ROADMAP.md, queue 1, item 16).
+reduced=True). The config files are the JAX package's, as pure data; `shapes` holds the
+dry run's input-shape cells.
 """
 
 from __future__ import annotations
 
 import importlib
+
+from .shapes import SHAPES, ShapeCell, cell_applicable, input_specs, \
+    enc_len_for
 
 _ARCH_MODULES = {
     "pixtral-12b": "pixtral_12b",
@@ -47,4 +48,6 @@ def get_cnn_graph(name: str, **kw):
     raise KeyError(name)
 
 
-__all__ = ["ARCH_IDS", "PAPER_CNNS", "get_config", "get_cnn_graph"]
+__all__ = ["ARCH_IDS", "PAPER_CNNS", "get_config", "get_cnn_graph",
+           "SHAPES", "ShapeCell", "cell_applicable", "input_specs",
+           "enc_len_for"]

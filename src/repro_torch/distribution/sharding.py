@@ -28,13 +28,14 @@ same axes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from ..models.config import ModelConfig
 from ..tree import map_with_path
-from .collectives import all_gather_cat
+from .collectives import all_gather_cat, all_to_all
 
 
 class PartitionSpec(tuple):
@@ -65,53 +66,101 @@ def _axes_of(entry) -> tuple:
 class NamedSharding:
     """A spec on a mesh. `shard` and `gather` move between the whole
     tensor and this rank's slice of it; a dim sharded over an axis of size
-    1 stays whole."""
+    1 stays whole. An entry naming several axes cuts its dim over their
+    product, the first axis major, as JAX flattens them."""
 
     mesh: Any
     spec: PartitionSpec
 
-    def _cuts(self, shape) -> list[tuple[int, str, int]]:
-        """(dim, axis, axis size) of every dim cut over an axis > 1."""
-        cuts = []
+    def cuts(self) -> list[tuple[int, tuple]]:
+        """(dim, axes) of every dim cut over axes of size > 1, the axes in
+        mesh order."""
+        order = list(self.mesh.shape)
+        out = []
         for dim, entry in enumerate(self.spec):
-            axes = [a for a in _axes_of(entry) if self.mesh.shape[a] > 1]
-            if len(axes) > 1 or (axes and axes[0] not in ("data", "model")):
-                raise NotImplementedError(
-                    f"{self.spec}: only single-axis data or model cuts are "
-                    "placed on ranks (pod and multi-axis cuts are GSPMD's)")
+            axes = tuple(a for a in _axes_of(entry)
+                         if self.mesh.shape[a] > 1)
+            if list(axes) != sorted(axes, key=order.index):
+                raise ValueError(f"{self.spec}: axes of one entry must be "
+                                 f"in mesh order {tuple(order)}")
             if axes:
-                n = self.mesh.shape[axes[0]]
-                if shape[dim] % n:
-                    raise ValueError(f"dim {dim} of {tuple(shape)} does not "
-                                     f"divide over {axes[0]}={n}")
-                cuts.append((dim, axes[0], n))
-        return cuts
+                out.append((dim, axes))
+        return out
+
+    def axes_size(self, axes) -> int:
+        """Ranks along `axes` (their product)."""
+        return math.prod(self.mesh.shape[a] for a in axes)
+
+    def axes_index(self, axes) -> int:
+        """This rank's index along `axes`, the first axis major."""
+        i = 0
+        for a in axes:
+            i = i * self.mesh.shape[a] + self.mesh.index(a)
+        return i
 
     def shard(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the whole tensor `x`."""
-        for dim, axis, n in self._cuts(x.shape):
-            i = (self.mesh.data_index if axis == "data"
-                 else self.mesh.model_index)
+        for dim, axes in self.cuts():
+            n = self.axes_size(axes)
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                                 f"divide over {axes}={n}")
             k = x.shape[dim] // n
-            x = x.narrow(dim, i * k, k)
+            x = x.narrow(dim, self.axes_index(axes) * k, k)
         return x.contiguous()
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole tensor from every rank's slice `x` (a collective over
         the cut axes' groups: every rank calls it)."""
-        for dim, axis, _ in reversed(self._cuts(
-                self.full_shape(x.shape))):
-            group = (self.mesh.data_group if axis == "data"
-                     else self.mesh.model_group)
-            x = all_gather_cat(x, dim, group)
+        for dim, axes in reversed(self.cuts()):
+            x = all_gather_cat(x, dim, self.mesh.group(axes))
         return x
 
-    def full_shape(self, local_shape) -> tuple:
-        shape = list(local_shape)
-        for dim, entry in enumerate(self.spec):
-            for a in _axes_of(entry):
-                shape[dim] *= self.mesh.shape[a]
+    def local_shape(self, full_shape) -> tuple:
+        shape = list(full_shape)
+        for dim, axes in self.cuts():
+            shape[dim] //= self.axes_size(axes)
         return tuple(shape)
+
+    def names(self, dim: int) -> tuple:
+        """The axes (of size > 1) that cut `dim`."""
+        return dict(self.cuts()).get(dim, ())
+
+    def data_cuts(self) -> list[tuple[int, tuple]]:
+        """The cuts over data axes (not `model`): the param cuts that a
+        layer gathers where it uses the leaf."""
+        return [(d, a) for d, a in self.cuts() if "model" not in a]
+
+
+def relayout(x: torch.Tensor, src: NamedSharding,
+             dst: NamedSharding) -> torch.Tensor:
+    """This rank's slice under `dst` from its slice `x` under `src` (same
+    mesh), without holding more than a slice: a dim that `dst` cuts over
+    the axes another dim is gathered over takes one all-to-all over them;
+    a dim only `dst` cuts is cut as soon as no pending gather runs over
+    its axes; the rest are gathered."""
+    a, b = dict(src.cuts()), dict(dst.cuts())
+    gath = {d: ax for d, ax in a.items() if b.get(d) != ax}
+    cuts = {d: ax for d, ax in b.items() if a.get(d) != ax}
+    while gath or cuts:
+        pair = next(((g, n) for g, ax in gath.items()
+                     for n, bx in cuts.items()
+                     if bx == ax and n != g and n not in gath), None)
+        if pair is not None:
+            g, n = pair
+            x = all_to_all(x, n, g, src.mesh.group(gath.pop(g)))
+            del cuts[n]
+            continue
+        ready = [n for n, bx in cuts.items() if n not in gath and not any(
+            set(bx) & set(ax) for ax in gath.values())]
+        for n in ready:
+            axes = cuts.pop(n)
+            k = x.shape[n] // dst.axes_size(axes)
+            x = x.narrow(n, dst.axes_index(axes) * k, k)
+        if not ready and gath:
+            g = max(gath)
+            x = all_gather_cat(x, g, src.mesh.group(gath.pop(g)))
+    return x.contiguous()
 
 
 def placements(spec: PartitionSpec, axis_names) -> tuple:

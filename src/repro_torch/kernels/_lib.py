@@ -178,3 +178,56 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# -- the route a tensor takes -------------------------------------------------
+
+_ROUTE = threading.local()
+
+
+class cost_route:
+    """`with cost_route("cuda"):` sends fake tensors (`FakeTensorMode`,
+    which allocates nothing) of any device down the route named: "cuda",
+    the kernels' custom ops, whose fake implementations give the result's
+    shape without a launch; or "ref", the plain versions. The dry run
+    costs the card's path this way on a host without one: autograd cannot
+    record fake CUDA tensors where torch has no CUDA. Real tensors are
+    routed by their device whatever the context says."""
+
+    def __init__(self, route: str):
+        if route not in ("cuda", "ref"):
+            raise ValueError(f"cost route {route!r}: 'cuda' or 'ref'")
+        self.route = route
+
+    def __enter__(self):
+        self.prev = getattr(_ROUTE, "route", None)
+        _ROUTE.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        _ROUTE.route = self.prev
+
+
+def route_of(t) -> str:
+    """"cuda" (the kernel) or "ref" (the plain version) for tensor `t`:
+    its device's route, or the `cost_route` for a fake tensor."""
+    forced = getattr(_ROUTE, "route", None)
+    if forced is not None:
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(t):
+            return forced
+    if t.device.type == "cuda":
+        return "cuda"
+    if t.device.type == "cpu":
+        return "ref"
+    raise ValueError(f"no kernel route for device {t.device}")
+
+
+def seen(t) -> bool:
+    """True when a launch on `t` must go through its kernel's custom op:
+    `t` is fake, or a dispatch mode (the op counter, a FLOP counter) is
+    active and has to see the op. Otherwise the wrapper calls the launch
+    directly and spares the decode loops the custom op's host dispatch."""
+    import torch
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t) or torch._C._len_torch_dispatch_stack() > 0

@@ -12,11 +12,22 @@ sliding window, the `scale` override, the -1e30 sentinel and
 
 K4 has no backward kernel. Under autograd `FlashAttentionFn` runs K4
 forward and differentiates the plain attention in its backward.
+
+Where a dispatch mode watches (`FakeTensorMode` in the dry run, the op
+counter, `torch.utils.flop_counter`) the launch is the custom op
+`torch.ops.repro_torch.flash_attention` (CUDA only), with a fake
+implementation, which gives the result's shape and launches nothing,
+and a FLOP formula: 4 x B x Hq x D per (q, k) pair that the masks leave
+visible (Q K^T and P V; the kernel skips the kv tiles no row of a q tile
+can see). Otherwise the wrapper calls the launch directly, without the
+custom op's dispatch on the host (`_lib.seen`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _lib, ref
 from .ref import NEG
@@ -127,32 +138,67 @@ def attention_reference(q, k, v, *, causal=True, window=None,
                                scale=scale)
 
 
-def _kernel_forward(q, k, v, causal, window, scale):
-    """K4 on CUDA tensors (one launch, counted), `flash_attention_plain`
-    on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def visible_pairs(Sq: int, Skv: int, causal: bool, window) -> int:
+    """(q, k) pairs that the causal mask (with the decode offset Skv - Sq)
+    and the window leave visible, over one (batch row, head)."""
+    qpos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(Skv - 1, qpos) if causal else np.full(Sq, Skv - 1)
+    lo = (np.maximum(0, qpos - window + 1)
+          if window is not None and window >= 0 else 0)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def _k4_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int, scale: float) -> torch.Tensor:
+    """One K4 launch (counted) on contiguous CUDA tensors; window -1 is
+    none."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    if B * Hq > 65535:
-        raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lib = _lib.load("flash_attention")
     # the library launches on the current device: make it q's
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Sq, Skv, D, int(causal), -1 if window is None else int(window),
-            float(1.0 / (D ** 0.5) if scale is None else scale),
+            Hkv, Sq, Skv, D, int(causal), window, scale,
             _DTYPES[q.dtype], _lib.stream_ptr(q))
     _lib.check(lib, err, "flash_attention")
     _lib.count_launch("flash_attention")
     return out
+
+
+_k4 = torch.library.custom_op("repro_torch::flash_attention", _k4_launch,
+                              mutates_args=(), device_types="cuda")
+
+
+@_k4.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _k4_flops(q_shape, k_shape, v_shape, causal, window, scale, *args,
+              out_shape=None, **kwargs) -> int:
+    B, Hq, Sq, D = q_shape
+    return 4 * B * Hq * D * visible_pairs(Sq, k_shape[2], causal,
+                                          None if window < 0 else window)
+
+
+def _kernel_forward(q, k, v, causal, window, scale):
+    """K4 on CUDA tensors (one launch, counted), `flash_attention_plain`
+    on CPU tensors (the route of `_lib.route_of`)."""
+    if _lib.route_of(q) == "ref":
+        return flash_attention_plain(q, k, v, causal, window, scale)
+    B, Hq, Sq, D = q.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+    if B * Hq > 65535:
+        raise ValueError(f"flash_attention: B * Hq = {B * Hq} > 65535")
+    launch = _k4 if _lib.seen(q) else _k4_launch
+    return launch(
+        q.contiguous(), k.contiguous(), v.contiguous(), bool(causal),
+        -1 if window is None else int(window),
+        float(1.0 / (D ** 0.5) if scale is None else scale))
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _lib
 from .flash_attention import flash_attention
 from .ssm_scan import ssm_scan
 
@@ -23,9 +24,6 @@ __all__ = ["resolve_backend", "flash_attention", "ssm_scan"]
 def resolve_backend(t: torch.Tensor) -> str:
     """The dispatch target for tensors on `t`'s device: "cuda" (the
     hand-written kernels) for a CUDA tensor, "ref" (the plain torch
-    versions and oracles) for a CPU tensor."""
-    if t.device.type == "cuda":
-        return "cuda"
-    if t.device.type == "cpu":
-        return "ref"
-    raise ValueError(f"no kernel backend for device {t.device}")
+    versions and oracles) for a CPU tensor; for a fake tensor, the
+    route of `_lib.cost_route` when one is set (the dry run)."""
+    return _lib.route_of(t)

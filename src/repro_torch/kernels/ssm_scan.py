@@ -6,11 +6,18 @@ torch version, which the wrapper takes for CPU tensors only. `h0` seeds
 the carry (the decode path resumes from the cached state); None means 0.
 Under autograd the wrapper goes through `SsmScanFn`: K5 forward, the plain
 version's autograd backward.
+
+Where a dispatch mode watches (`_lib.seen`: the dry run, the op counter)
+the launch is the custom op `torch.ops.repro_torch.ssm_scan` (CUDA only),
+with a fake implementation (shapes, no launch) and a FLOP formula for
+`torch.utils.flop_counter`: a multiply and an add per element. Otherwise
+the wrapper calls the launch directly.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _lib
 from .ref import ssm_scan_sequential
@@ -51,17 +58,10 @@ def ssm_scan(a: torch.Tensor, x: torch.Tensor,
     return _kernel_forward(a, x, h0)
 
 
-def _kernel_forward(a, x, h0):
-    """K5 on CUDA tensors (one launch, counted), `ssm_scan_plain` on CPU
-    tensors."""
-    if x.device.type == "cpu":
-        return ssm_scan_plain(a, x, h0)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: no kernel for device {x.device}")
+def _k5_launch(a: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor | None) -> torch.Tensor:
+    """One K5 launch (counted) on contiguous f32 CUDA tensors."""
     B, T, D = x.shape
-    a = a.float().contiguous()
-    x = x.float().contiguous()
-    h0 = None if h0 is None else h0.float().contiguous()
     y = torch.empty((B, T, D), dtype=torch.float32, device=x.device)
     lib = _lib.load("ssm_scan")
     with torch.cuda.device(x.device):
@@ -71,6 +71,33 @@ def _kernel_forward(a, x, h0):
     _lib.check(lib, err, "ssm_scan")
     _lib.count_launch("ssm_scan")
     return y
+
+
+_k5 = torch.library.custom_op("repro_torch::ssm_scan", _k5_launch,
+                              mutates_args=(), device_types="cuda")
+
+
+@_k5.register_fake
+def _(a, x, h0):
+    return torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssm_scan)
+def _k5_flops(a_shape, x_shape, h0_shape, *args, out_shape=None,
+              **kwargs) -> int:
+    B, T, D = x_shape
+    return 2 * B * T * D
+
+
+def _kernel_forward(a, x, h0):
+    """K5 on CUDA tensors (one launch, counted), `ssm_scan_plain` on CPU
+    tensors (the route of `_lib.route_of`)."""
+    if _lib.route_of(x) == "ref":
+        return ssm_scan_plain(a, x, h0)
+    launch = _k5 if _lib.seen(x) else _k5_launch
+    return launch(
+        a.float().contiguous(), x.float().contiguous(),
+        None if h0 is None else h0.float().contiguous())
 
 
 class SsmScanFn(torch.autograd.Function):

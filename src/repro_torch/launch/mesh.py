@@ -17,6 +17,7 @@ exactly that size.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 
 _LOCK = threading.Lock()
@@ -38,6 +39,21 @@ class HostMesh:
     data_group: object = None
     model_group: object = None
     dp_group: object = None        # pod x data, when the mesh has pods
+    groups: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
+
+    def group(self, axes):
+        """The process group of this rank's copy along `axes` (a name or a
+        tuple of names in mesh order), or None without a process group."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not self.distributed:
+            return None
+        return self.groups[axes]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on `axis`."""
+        return {"pod": self.pod_index, "data": self.data_index,
+                "model": self.model_index}[axis]
 
     @property
     def size(self) -> int:
@@ -131,35 +147,38 @@ def make_host_mesh(data: int = 1, model: int = 1, pod: int = 0) -> HostMesh:
 
 def _build(shape: dict, data: int, model: int, product: int, world: int,
            rank: int) -> HostMesh:
-    """Create every group of every mesh copy (all ranks, same order) and
-    keep this rank's two. Layout per copy: model fastest, then data, then
-    pod, as `jax.make_mesh` orders the devices."""
+    """Create the groups of every set of the mesh's axes, for every mesh
+    copy (all ranks, same order), and keep this rank's. Layout per copy:
+    model fastest, then data, then pod, as `jax.make_mesh` orders the
+    devices; a group lists its ranks in that order, so its rank order is
+    the order in which JAX flattens the axes of a multi-axis spec entry."""
+    import itertools
+
     import torch.distributed as dist
-    mine_data = mine_model = mine_dp = None
-    for base in range(0, world, product):
-        for p in range(product // (data * model)):
-            off = base + p * data * model
-            for d in range(data):
-                ranks = [off + d * model + m for m in range(model)]
-                grp = dist.new_group(ranks)
-                if rank in ranks:
-                    mine_model = grp
-            for m in range(model):
-                ranks = [off + d * model + m for d in range(data)]
-                grp = dist.new_group(ranks)
-                if rank in ranks:
-                    mine_data = grp
-        if "pod" in shape:
-            for m in range(model):
-                ranks = list(range(base + m, base + product, model))
-                grp = dist.new_group(ranks)
-                if rank in ranks:
-                    mine_dp = grp
+    names = tuple(shape)
+    sizes = [shape[a] for a in names]
+    strides = [math.prod(sizes[i + 1:]) for i in range(len(names))]
+    mine = {}
+    for n_axes in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), n_axes):
+            rest = [i for i in range(len(names)) if i not in axes]
+            for base in range(0, world, product):
+                for fixed in itertools.product(*(range(sizes[i])
+                                                 for i in rest)):
+                    off = base + sum(c * strides[i]
+                                     for c, i in zip(fixed, rest))
+                    ranks = sorted(
+                        off + sum(c * strides[i] for c, i in zip(cs, axes))
+                        for cs in itertools.product(*(range(sizes[i])
+                                                      for i in axes)))
+                    grp = dist.new_group(ranks)
+                    if rank in ranks:
+                        mine[tuple(names[i] for i in axes)] = grp
     local = rank % (data * model)
     return HostMesh(shape=shape, rank=rank, world=world,
                     data_index=local // model, model_index=local % model,
-                    data_group=mine_data, model_group=mine_model,
-                    dp_group=mine_dp)
+                    data_group=mine[("data",)], model_group=mine[("model",)],
+                    dp_group=mine.get(("pod", "data")), groups=mine)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:

@@ -5,10 +5,16 @@
         --device cpu
 
 Runs on the GPU by default (`--device cuda`; without one it raises). One
-process drives the 1 x 1 mesh with no process group. For data parallelism
+process drives the 1 x 1 mesh with no process group. For several ranks
 run one process per rank with `--coordinator host:port --rank R --world
 W` (NCCL on CUDA, gloo on the CPU); each rank uses card R % the card
-count.
+count. `--model-axis M` cuts the model over M ranks (tensor parallelism,
+`param_shardings`' specs) and the rest of the world is the data axis:
+
+    for r in 0 1 2; do PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch smollm-135m --reduced --device cpu --steps 5 --seq 64 \
+        --model-axis 3 --coordinator localhost:29511 --rank $r \
+        --world 3 & done; wait
 """
 
 from __future__ import annotations

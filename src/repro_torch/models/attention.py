@@ -18,6 +18,14 @@ window, and the execution paths of the JAX package's `models/attention.py`:
                            scales, without dequantizing it.
 
 All math in f32, outputs cast back to the activation dtype.
+
+On a model axis above 1 (`distribution/tensor_parallel.py`) q, k and v
+are this rank's heads when wq/wk/wv are cut on whole heads, else all
+heads (gathered); `local_kv` picks the kv heads of this rank's q heads
+(the GQA group of a q head stays h // (Hq / Hkv) whatever the cut), `wo`
+is row-parallel, and `decode_attend_cut` attends over a cache whose
+positions are cut over ranks (`cache_shardings` cuts them when the kv
+heads do not divide over `model`).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import torch
 from .config import ModelConfig
 from .layers import normal_init
 from .rope import apply_rope
+from ..distribution.tensor_parallel import (Axis, col_heads, model_axis,
+                                            row)
 from ..kernels import ops as kops
 from ..kernels import ref
 from ..kernels.flash_attention import (  # noqa: F401 (re-exported)
@@ -52,19 +62,36 @@ def qkv_proj(p, x, cfg: ModelConfig, positions):
     `positions` is (S,), or (B,1,S) for one position row per batch row."""
     B, S, _ = x.shape
     Hq, Hkv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(B, S, Hq, Hd).transpose(1, 2)
-    k = k.reshape(B, S, Hkv, Hd).transpose(1, 2)
-    v = v.reshape(B, S, Hkv, Hd).transpose(1, 2)
+    ax = model_axis()
+    q = col_heads(x, p["wq"], Hq, Hd, ax, p.get("bq"))
+    k = col_heads(x, p["wk"], Hkv, Hd, ax, p.get("bk"))
+    v = col_heads(x, p["wv"], Hkv, Hd, ax, p.get("bv"))
+    q = q.reshape(B, S, -1, Hd).transpose(1, 2)
+    k = k.reshape(B, S, -1, Hd).transpose(1, 2)
+    v = v.reshape(B, S, -1, Hd).transpose(1, 2)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def local_kv(q, k, v, cfg: ModelConfig):
+    """The k and v heads that this rank's q heads attend to. q and k
+    from `qkv_proj` are both local heads, both whole, or (the kv heads do
+    not divide over `model`, the q heads do) local q heads against whole
+    kv heads: then q head h of the model takes kv head h // g, a
+    contiguous block when the rank's q heads are whole groups, one kv head
+    per q head otherwise."""
+    hq, hk = q.shape[1], k.shape[1]
+    if hq == cfg.num_heads or hk != cfg.num_kv_heads:
+        return k, v
+    ax = model_axis()
+    g = cfg.num_heads // cfg.num_kv_heads
+    q0 = ax.index * hq
+    k, v = ax.enter(k), ax.enter(v)
+    if hq % g == 0 and q0 % g == 0:
+        return k[:, q0 // g:(q0 + hq) // g], v[:, q0 // g:(q0 + hq) // g]
+    heads = torch.arange(q0, q0 + hq, device=k.device) // g
+    return k[:, heads], v[:, heads]
 
 
 def attend(q, k, v, *, causal=True, window=None,
@@ -142,7 +169,34 @@ def decode_attend(q, cache_k, cache_v, pos, *, window=None):
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 
+def decode_attend_cut(q, cache_k, cache_v, pos, seq: Axis, *, window=None):
+    """`decode_attend` of whole q heads against this rank's positions of a
+    cache cut over `seq` (the rank holds positions [i * S_loc, (i + 1) *
+    S_loc)): the softmax's maximum, its sum and the products are summed
+    over the ranks, so the result is the whole softmax's."""
+    B, Hq, _, D = q.shape
+    _, Hkv, S_loc, _ = cache_k.shape
+    g = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qh = (q.reshape(B, Hkv, g, D) * scale).to(cache_k.dtype).float()
+    s = torch.matmul(qh, cache_k.float().transpose(-1, -2))  # (B,Hkv,g,S)
+    p_ = torch.as_tensor(pos, device=q.device).reshape(-1, 1, 1, 1)
+    kpos = (seq.index * S_loc
+            + torch.arange(S_loc, device=q.device))[None, None, None, :]
+    mask = kpos <= p_
+    if window is not None:
+        mask = mask & (kpos > p_ - window)
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    m = seq.all_reduce(s.amax(dim=-1, keepdim=True), "max")
+    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = seq.all_reduce(e.sum(dim=-1, keepdim=True))
+    out = seq.all_reduce(torch.matmul((e / l).to(cache_v.dtype).float(),
+                                      cache_v.float()))
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
 def attn_out(p, o, cfg: ModelConfig):
-    """o (B,Hq,S,hd) -> (B,S,D)."""
-    B, Hq, S, Hd = o.shape
-    return o.transpose(1, 2).reshape(B, S, Hq * Hd) @ p["wo"]
+    """o (B,Hq,S,hd) (this rank's heads or all) -> (B,S,D)."""
+    B, H, S, Hd = o.shape
+    return row(o.transpose(1, 2).reshape(B, S, H * Hd), p["wo"],
+               cfg.num_heads * cfg.hd, model_axis())

@@ -14,6 +14,13 @@ combine weight is 0, so they fall back to the residual path). The router
 runs in float32 whatever the model dtype. Plain torch, as the JAX package's
 module is plain JAX; the expert products are batched matmuls.
 
+On a model axis above 1 (`distribution/tensor_parallel.py`) the router
+stays replicated and the experts are cut as `param_pspec` cuts them:
+over their hidden width F (each rank's experts give partial products) or
+over the experts (each rank runs its own experts' slots); the combine is
+then summed over `model`. Experts cut over data are gathered whole when
+the layer starts (`layer_whole`).
+
 Order-sensitive details kept from the JAX package: `top_k` returns ties
 lowest expert id first (a stable descending sort here), the slot order
 within an expert is a stable argsort, and segment starts are a left
@@ -25,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distribution.tensor_parallel import cut, model_axis
 from .config import ModelConfig
 from .layers import normal_init
 
@@ -36,6 +44,13 @@ def moe_init(generator, cfg: ModelConfig, dtype, device=None):
             "wi": normal_init(generator, (E, D, Fd), dtype, device=device),
             "wg": normal_init(generator, (E, D, Fd), dtype, device=device),
             "wo": normal_init(generator, (E, Fd, D), dtype, device=device)}
+
+
+def _one_hot(x, n: int):
+    """`F.one_hot` as one comparison: the same ops whatever the tensor
+    (F.one_hot first checks the ids' range on real tensors only, which
+    would make a step's op stream differ from its fake twin's)."""
+    return x[..., None] == torch.arange(n, device=x.device)
 
 
 def _capacity(T: int, cfg: ModelConfig) -> int:
@@ -59,7 +74,7 @@ def _router(p, x, cfg: ModelConfig):
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     E = cfg.num_experts
     me = probs.mean(dim=-2)
-    fe = F.one_hot(idx[..., 0], E).float().mean(dim=-2)
+    fe = _one_hot(idx[..., 0], E).float().mean(dim=-2)
     aux = E * torch.sum(me * fe, dim=-1)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2, dim=-1)
     return gate, idx, aux + 1e-3 * z
@@ -90,21 +105,40 @@ def moe_apply_onehot_batched(p, x, cfg: ModelConfig):
 
     # slot assignment: position of each (token, k) within its expert
     flat_e = idx.reshape(B, T * K)
-    eo = F.one_hot(flat_e, E).to(torch.int32)                 # (B, T*K, E)
+    eo = _one_hot(flat_e, E).to(torch.int32)                 # (B, T*K, E)
     pos = torch.cumsum(eo, dim=1) * eo - 1
     slot = pos.amax(dim=2)                                    # (B, T*K)
     keep = (slot < C) & (slot >= 0)
-    disp = (F.one_hot(flat_e, E).to(x.dtype)[..., :, None]
-            * F.one_hot(torch.where(keep, slot, 0), C).to(x.dtype)
+    disp = (_one_hot(flat_e, E).to(x.dtype)[..., :, None]
+            * _one_hot(torch.where(keep, slot, 0), C).to(x.dtype)
             [..., None, :]
             * keep[..., None, None].to(x.dtype))              # (B,T*K,E,C)
     disp = disp.reshape(B, T, K, E, C)
     comb = disp * gate[..., None, None].to(x.dtype)
 
     xe = torch.einsum("btkec,btd->becd", disp, x)
-    ye = _expert_mlp(p, xe)
-    y = torch.einsum("btkec,becd->btd", comb, ye)
-    return y, aux.mean()
+    ax, e0, e1 = _expert_cut(p, cfg)
+    if ax is None:
+        ye = _expert_mlp(p, xe)
+        y = torch.einsum("btkec,becd->btd", comb, ye)
+        return y, aux.mean()
+    ye = _expert_mlp(p, ax.enter(xe)[:, e0:e1])
+    y = torch.einsum("btkec,becd->btd", ax.enter(comb)[:, :, :, e0:e1], ye)
+    return ax.reduce(y), aux.mean()
+
+
+def _expert_cut(p, cfg: ModelConfig):
+    """(model axis, first and end expert of this rank) when the experts
+    are cut over `model` (over E, or over F: then every expert, each
+    giving a partial product), or (None, 0, E) when they are whole."""
+    ax = model_axis()
+    E = cfg.num_experts
+    wi = p["wi"]
+    if not cut(wi, -3, E) and not cut(wi, -1, cfg.d_ff):
+        return None, 0, E
+    e_loc = wi.shape[-3]
+    e0 = ax.index * e_loc if cut(wi, -3, E) else 0
+    return ax, e0, e0 + e_loc
 
 
 def moe_apply_sorted(p, x, cfg: ModelConfig):
@@ -140,13 +174,20 @@ def moe_apply_sorted_batched(p, x, cfg: ModelConfig):
     buf = torch.zeros((B, E, C, D), dtype=x.dtype, device=dev)
     buf.index_put_((b_iota, se, slot_c), xt, accumulate=True)
 
-    ye = _expert_mlp(p, buf)                                  # (B, E, C, D)
-
-    yt = ye[b_iota, se, slot_c] * keep[..., None].to(x.dtype)
     gflat = torch.gather(gate.reshape(B, S * K), 1, order).to(x.dtype)
+    ax, e0, e1 = _expert_cut(p, cfg)
+    if ax is None:
+        ye = _expert_mlp(p, buf)                              # (B, E, C, D)
+        yt = ye[b_iota, se, slot_c] * keep[..., None].to(x.dtype)
+    else:
+        ye = _expert_mlp(p, ax.enter(buf)[:, e0:e1])
+        mine = keep & (se >= e0) & (se < e1)
+        yt = ye[b_iota, torch.clamp(se - e0, 0, e1 - e0 - 1), slot_c] \
+            * mine[..., None].to(x.dtype)
+        gflat = ax.enter(gflat)
     y = torch.zeros((B, S, D), dtype=x.dtype, device=dev)
     y.index_put_((b_iota, tok), yt * gflat[..., None], accumulate=True)
-    return y, aux.mean()
+    return (y, aux.mean()) if ax is None else (ax.reduce(y), aux.mean())
 
 
 def moe_apply(p, x, cfg: ModelConfig):

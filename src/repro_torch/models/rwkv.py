@@ -11,6 +11,14 @@ Prefill and decode both use the JAX package's chunked-parallel form
 in float32 with the same order of operations and the same 1e-30 clamps on
 the cumulative decays, so the two packages' chunked forms agree to float32
 rounding. Plain torch, as the JAX package's module is plain JAX.
+
+On a model axis above 1 (`distribution/tensor_parallel.py`) the time mix
+runs on this rank's heads when they divide over `model` (wr, wk, wv, wg
+and w_proj column-parallel, the `wkv` state the rank's heads, as
+`cache_shardings` cuts it; u, w_bias and ln_scale taken on the rank's
+slice), else on all heads gathered whole; wo and the channel mix's cv are
+row-parallel, ck column-parallel, and cr's column-parallel output is
+gathered whole.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distribution.tensor_parallel import col, col_whole, model_axis, row
 from .config import ModelConfig
 from .layers import normal_init
 
@@ -115,28 +124,39 @@ def rwkv_time_mix(p, x, cfg: ModelConfig, state=None, last=None):
     xv = _token_shift(x, p["mix_v"], last)
     xw = _token_shift(x, p["mix_w"], last)
     xg = _token_shift(x, p["mix_g"], last)
-    r = (xr @ p["wr"]).reshape(B, S, H, dk).transpose(1, 2)
-    k = (xk @ p["wk"]).reshape(B, S, H, dk).transpose(1, 2)
-    v = (xv @ p["wv"]).reshape(B, S, H, dk).transpose(1, 2)
-    g = F.silu(xg @ p["wg"])
+    ax = model_axis()
+    local = ax.divides(H)                    # this rank's heads
+    proj = col if local else col_whole
+    u, w_bias, ln_scale = p["u"], p["w_bias"], p["ln_scale"]
+    if local:
+        H, D = H // ax.n, D // ax.n
+        u, w_bias = ax.split(u, 0), ax.split(w_bias, -1)
+        ln_scale = ax.split(ln_scale, -1)
+    Dw = cfg.d_model
+    r = proj(xr, p["wr"], Dw, ax).reshape(B, S, H, dk).transpose(1, 2)
+    k = proj(xk, p["wk"], Dw, ax).reshape(B, S, H, dk).transpose(1, 2)
+    v = proj(xv, p["wv"], Dw, ax).reshape(B, S, H, dk).transpose(1, 2)
+    g = F.silu(proj(xg, p["wg"], Dw, ax))
     # data-dependent decay (Finch): w in (0,1), near 1
-    wdec = torch.exp(-torch.exp(xw.float() @ p["w_proj"].float()
-                                + p["w_bias"]))
+    wdec = torch.exp(-torch.exp(proj(xw.float(), p["w_proj"].float(), Dw,
+                                     ax) + w_bias))
     wdec = wdec.reshape(B, S, H, dk).transpose(1, 2)
-    y, S_fin = wkv_chunked(r, k, v, wdec, p["u"], state=state)
+    y, S_fin = wkv_chunked(r, k, v, wdec, u, state=state)
     y = y.transpose(1, 2).reshape(B, S, D)
     # per-head group norm
     yf = y.float().reshape(B, S, H, dk)
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, unbiased=False)
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
-    y = (yf.reshape(B, S, D) * p["ln_scale"].float()).to(x.dtype)
-    out = (y * g) @ p["wo"]
+    y = (yf.reshape(B, S, D) * ln_scale.float()).to(x.dtype)
+    out = row(y * g, p["wo"], Dw, ax)
     return out, (S_fin, x[:, -1:, :])
 
 
 def rwkv_channel_mix(p, x, cfg: ModelConfig, last=None):
     xk = _token_shift(x, p["cmix_k"], last)
     xr = _token_shift(x, p["cmix_r"], last)
-    k = torch.square(F.relu(xk @ p["ck"]))
-    return torch.sigmoid(xr @ p["cr"]) * (k @ p["cv"]), x[:, -1:, :]
+    ax = model_axis()
+    k = torch.square(F.relu(col(xk, p["ck"], cfg.d_ff, ax)))
+    r = torch.sigmoid(col_whole(xr, p["cr"], cfg.d_model, ax))
+    return r * row(k, p["cv"], cfg.d_ff, ax), x[:, -1:, :]

@@ -23,20 +23,29 @@ and the attention mask are per row. A write index past the cache is
 clamped to `max_len - 1`, as `jax.lax.dynamic_update_slice` clamps its
 start index (an idle slot's position keeps growing). Steps are functional:
 the caller's cache is not modified.
+
+On a mesh (`with_mesh_context(mesh, params=..., cache=...)`) each rank
+runs on its slices of the params and of the cache as `param_shardings`
+and `cache_shardings` cut them; a cache whose positions are cut over
+ranks (kv heads that do not divide over `model`) is written by the rank
+that holds the position and attended with the softmax reduced over the
+cut.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .attention import (attn_out, attend, decode_attend, decode_attend_int8,
-                        qkv_proj, quantize_kv)
+from .attention import (attn_out, attend, decode_attend, decode_attend_cut,
+                        decode_attend_int8, local_kv, qkv_proj, quantize_kv)
+from ..distribution.tensor_parallel import (cache_seq_axis, col_whole,
+                                            materialize, model_axis)
 from .config import ModelConfig
 from .layers import embed_apply, make_norm, mlp_apply
 from .moe import moe_apply
 from .ssm import ssm_apply
 from .transformer import (_dec_block, _embed_with_frontend, _rwkv_block,
-                          _unembed_weight, check_family, encode, layer)
+                          _unembed_weight, check_family, encode, layer_of)
 
 
 def _hybrid_groups(cfg: ModelConfig) -> tuple[int, int, int]:
@@ -95,15 +104,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _last_logits(cfg, params, h):
     _, norm = make_norm(cfg.norm)
     h = norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
-    return (h @ _unembed_weight(cfg, params)).float()
+    return col_whole(h, _unembed_weight(cfg, params), cfg.vocab_size,
+                     model_axis()).float()
 
 
-def _place(cache_slab, fresh):
+def _place(cache_slab, fresh, name="k"):
     """Write the S prefilled positions into a (possibly longer) slab: the
-    position axis is dim 3 of the (L, B, H, max_len[, hd]) slabs."""
+    position axis is dim 3 of the (L, B, H, max_len[, hd]) slabs. When
+    the cache layout cuts the positions of leaf `name` over ranks, this
+    rank's slab holds positions [i * n, (i + 1) * n) of the whole."""
     out = cache_slab.clone()
-    out[:, :, :, :fresh.shape[3]] = fresh.to(cache_slab.dtype)
+    n = cache_slab.shape[3]
+    lo = cache_seq_axis(name).index * n
+    part = fresh[:, :, :, lo:lo + n]
+    out[:, :, :, :part.shape[3]] = part.to(cache_slab.dtype)
     return out
+
+
+def _positions(fresh, name):
+    """This rank's positions (dim 3) of a whole cache leaf `name`."""
+    return cache_seq_axis(name).local(fresh, 3)
 
 
 def _rwkv_cache(states, pos, dt) -> dict:
@@ -120,10 +140,11 @@ def _ffn(cfg: ModelConfig, pl_, h):
     _, norm = make_norm(cfg.norm)
     z = norm(pl_["ln2"], h, cfg.norm_eps)
     if cfg.family == "dense":
-        return h + mlp_apply(pl_["mlp"], z, cfg.act)
+        return h + mlp_apply(pl_["mlp"], z, cfg.act, cfg.d_ff)
     y, _ = moe_apply(pl_["moe"], z, cfg)
     if cfg.dense_residual_ff:
-        y = y + mlp_apply(pl_["dense_mlp"], z, cfg.act)
+        y = y + mlp_apply(pl_["dense_mlp"], z, cfg.act,
+                          cfg.dense_residual_ff)
     return h + y
 
 
@@ -136,6 +157,7 @@ def prefill_step(cfg: ModelConfig):
     dt = cfg.torch_dtype
 
     def fn(params, batch, cache):
+        params = materialize(params)
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device)
@@ -145,10 +167,11 @@ def prefill_step(cfg: ModelConfig):
             x = _embed_with_frontend(cfg, params, batch)
             ks, vs = [], []
             for i in range(cfg.num_layers):
-                pl_ = layer(params["layers"], i)
+                pl_ = layer_of(params, "layers", i)
                 z = norm(pl_["ln1"], x, cfg.norm_eps)
                 q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
-                o = attend(q, k, v, causal=True, window=cfg.sliding_window)
+                o = attend(q, *local_kv(q, k, v, cfg), causal=True,
+                           window=cfg.sliding_window)
                 x = x + attn_out(pl_["attn"], o, cfg)
                 x = _ffn(cfg, pl_, x)
                 ks.append(k)
@@ -158,55 +181,58 @@ def prefill_step(cfg: ModelConfig):
                 kq, ksc = quantize_kv(k_all)
                 vq, vsc = quantize_kv(v_all)
                 new_cache = {"k": _place(cache["k"], kq),
-                             "v": _place(cache["v"], vq),
-                             "k_scale": _place(cache["k_scale"], ksc),
-                             "v_scale": _place(cache["v_scale"], vsc),
+                             "v": _place(cache["v"], vq, "v"),
+                             "k_scale": _place(cache["k_scale"], ksc,
+                                               "k_scale"),
+                             "v_scale": _place(cache["v_scale"], vsc,
+                                               "v_scale"),
                              "pos": pos}
             else:
                 new_cache = {"k": _place(cache["k"], k_all.to(dt)),
-                             "v": _place(cache["v"], v_all.to(dt)),
+                             "v": _place(cache["v"], v_all.to(dt), "v"),
                              "pos": pos}
             return _last_logits(cfg, params, x), new_cache
 
         if cfg.family == "ssm":
-            x = embed_apply(params["embed"], tokens)
+            x = embed_apply(params["embed"], tokens, cfg.vocab_size)
             states = []
             for i in range(cfg.num_layers):
-                x, st = _rwkv_block(layer(params["layers"], i), x, cfg)
+                x, st = _rwkv_block(layer_of(params, "layers", i), x, cfg)
                 states.append(st)
             return _last_logits(cfg, params, x), _rwkv_cache(states, pos, dt)
 
         if cfg.family == "encdec":
             src = batch["src_tokens"]
-            x_enc = embed_apply(params["embed"], src)
+            x_enc = embed_apply(params["embed"], src, cfg.vocab_size)
             if cfg.frontend is not None and "frontend_embeds" in batch:
                 fe = batch["frontend_embeds"].to(x_enc.dtype)
                 x_enc = torch.cat([fe, x_enc[:, fe.shape[1]:]], dim=1)
             enc_pos = torch.arange(src.shape[1], device=src.device)
             enc_out = encode(cfg, params, x_enc, enc_pos)
-            x = embed_apply(params["embed"], tokens)
+            x = embed_apply(params["embed"], tokens, cfg.vocab_size)
             ks, vs, kxs, vxs = [], [], [], []
             for i in range(cfg.dec_layers):
                 x, (k, v, kx, vx) = _dec_block(
-                    layer(params["dec_layers"], i), x, enc_out, cfg,
+                    layer_of(params, "dec_layers", i), x, enc_out, cfg,
                     positions, enc_pos)
                 ks.append(k.to(dt))
                 vs.append(v.to(dt))
                 kxs.append(kx.to(dt))
                 vxs.append(vx.to(dt))
             new_cache = {"k": _place(cache["k"], torch.stack(ks)),
-                         "v": _place(cache["v"], torch.stack(vs)),
-                         "xk": torch.stack(kxs), "xv": torch.stack(vxs),
+                         "v": _place(cache["v"], torch.stack(vs), "v"),
+                         "xk": _positions(torch.stack(kxs), "xk"),
+                         "xv": _positions(torch.stack(vxs), "xv"),
                          "pos": pos}
             return _last_logits(cfg, params, x), new_cache
 
-        x = embed_apply(params["embed"], tokens)
+        x = embed_apply(params["embed"], tokens, cfg.vocab_size)
         shared = params["shared_attn"]
         period, G, R = _hybrid_groups(cfg)
         st, cc, ks, vs = [], [], [], []
 
         def ssm_once(h, i):
-            pl_ = layer(params["layers"], i)
+            pl_ = layer_of(params, "layers", i)
             z = norm(pl_["ln1"], h, cfg.norm_eps)
             y, (s_new, c_new) = ssm_apply(pl_["ssm"], z, cfg)
             st.append(s_new)
@@ -218,10 +244,10 @@ def prefill_step(cfg: ModelConfig):
                 x = ssm_once(x, i)
             z = norm(shared["ln1"], x, cfg.norm_eps)
             q, k, v = qkv_proj(shared["attn"], z, cfg, positions)
-            o = attend(q, k, v, causal=True)
+            o = attend(q, *local_kv(q, k, v, cfg), causal=True)
             x = x + attn_out(shared["attn"], o, cfg)
             z = norm(shared["ln2"], x, cfg.norm_eps)
-            x = x + mlp_apply(shared["mlp"], z, cfg.act)
+            x = x + mlp_apply(shared["mlp"], z, cfg.act, cfg.d_ff)
             ks.append(k.to(dt))
             vs.append(v.to(dt))
         for i in range(G * period, G * period + R):
@@ -229,7 +255,7 @@ def prefill_step(cfg: ModelConfig):
         new_cache = {"ssm_state": torch.stack(st), "conv": torch.stack(cc),
                      "k": _place(cache["k"], torch.stack(ks)) if ks
                      else cache["k"].clone(),
-                     "v": _place(cache["v"], torch.stack(vs)) if vs
+                     "v": _place(cache["v"], torch.stack(vs), "v") if vs
                      else cache["v"].clone(),
                      "pos": pos}
         return _last_logits(cfg, params, x), new_cache
@@ -239,11 +265,22 @@ def prefill_step(cfg: ModelConfig):
 
 # -- decode -----------------------------------------------------------------------
 
-def _write_rows(slab, fresh, idx):
+def _write_rows(slab, fresh, idx, seq=None):
     """slab (B, H, Smax, ...) with row b's position idx[b] set to fresh
-    (B, H, ...), in place (the slab is the step's own copy)."""
-    B = slab.shape[0]
-    slab[torch.arange(B, device=slab.device), :, idx] = fresh.to(slab.dtype)
+    (B, H, ...), in place (the slab is the step's own copy). A slab of a
+    cache whose positions are cut over `seq` holds positions [i * Smax,
+    (i + 1) * Smax): it takes the rows whose position falls there."""
+    B, n = slab.shape[0], slab.shape[2]
+    rows = torch.arange(B, device=slab.device)
+    if seq is None or seq.n == 1:
+        slab[rows, :, idx] = fresh.to(slab.dtype)
+        return
+    j = idx - seq.index * n
+    mine = (j >= 0) & (j < n)
+    j = torch.clamp(j, 0, n - 1)
+    keep = slab[rows, :, j]
+    mine = mine.reshape((B,) + (1,) * (keep.dim() - 1))
+    slab[rows, :, j] = torch.where(mine, fresh.to(slab.dtype), keep)
 
 
 def decode_step(cfg: ModelConfig):
@@ -256,17 +293,31 @@ def decode_step(cfg: ModelConfig):
 
     def _attn_step(pl_, h, k_l, v_l, pos, idx, window):
         """One-token attention against this layer's cache slab (written in
-        place: k_l / v_l are this step's copies)."""
+        place: k_l / v_l are this step's copies). Over a cache whose
+        positions are cut, every rank takes all q heads and the softmax
+        is reduced over the cut (`decode_attend_cut`)."""
         z = norm(pl_["ln1"], h, cfg.norm_eps)
         q, k, v = qkv_proj(pl_["attn"], z, cfg, pos.reshape(-1, 1, 1))
-        _write_rows(k_l, k[:, :, 0], idx)
-        _write_rows(v_l, v[:, :, 0], idx)
-        o = decode_attend(q, k_l, v_l, pos, window=window)
+        seq = cache_seq_axis("k")
+        _write_rows(k_l, k[:, :, 0], idx, seq)
+        _write_rows(v_l, v[:, :, 0], idx, seq)
+        if seq.n > 1:
+            if q.shape[1] != cfg.num_heads:
+                q = model_axis().gather(q, 1)
+            o = decode_attend_cut(q, k_l, v_l, pos, seq, window=window)
+        else:
+            o = decode_attend(q, *local_kv(q, k_l, v_l, cfg), pos,
+                              window=window)
         return h + attn_out(pl_["attn"], o, cfg)
 
     def _attn_step_int8(pl_, h, k_l, ks_l, v_l, vs_l, pos, idx, window):
         z = norm(pl_["ln1"], h, cfg.norm_eps)
         q, k, v = qkv_proj(pl_["attn"], z, cfg, pos.reshape(-1, 1, 1))
+        if cache_seq_axis("k").n > 1 or \
+                q.shape[1] * cfg.num_kv_heads != k_l.shape[1] * cfg.num_heads:
+            raise NotImplementedError(
+                "an int8 KV cache is served with whole GQA groups on each "
+                "rank only, not on positions cut over ranks")
         kq, ksc = quantize_kv(k)
         vq, vsc = quantize_kv(v)
         _write_rows(k_l, kq[:, :, 0], idx)
@@ -277,14 +328,15 @@ def decode_step(cfg: ModelConfig):
         return h + attn_out(pl_["attn"], o, cfg)
 
     def fn(params, cache, tokens):
+        params = materialize(params)
         B = tokens.shape[0]
         pos = (cache["pos"] + 1).to(torch.int32)
-        x = embed_apply(params["embed"], tokens)
+        x = embed_apply(params["embed"], tokens, cfg.vocab_size)
 
         if cfg.family == "ssm":
             states = []
             for i in range(cfg.num_layers):
-                x, st = _rwkv_block(layer(params["layers"], i), x, cfg,
+                x, st = _rwkv_block(layer_of(params, "layers", i), x, cfg,
                                     cache["wkv"][i], cache["last_tm"][i],
                                     cache["last_cm"][i])
                 states.append(st)
@@ -293,13 +345,13 @@ def decode_step(cfg: ModelConfig):
 
         # the cache write index: per row, clamped into the cache like the
         # start index of jax.lax.dynamic_update_slice
-        smax = cache["k"].shape[3]
+        smax = cache["k"].shape[3] * cache_seq_axis("k").n
         idx = torch.clamp(pos.reshape(-1), 0, smax - 1).expand(B)
 
         if cfg.family in ("dense", "moe"):
             new = {k: v.clone() for k, v in cache.items() if k != "pos"}
             for i in range(cfg.num_layers):
-                pl_ = layer(params["layers"], i)
+                pl_ = layer_of(params, "layers", i)
                 if cfg.kv_cache_dtype == "int8":
                     x = _attn_step_int8(pl_, x, new["k"][i], new["k_scale"][i],
                                         new["v"][i], new["v_scale"][i], pos,
@@ -313,15 +365,21 @@ def decode_step(cfg: ModelConfig):
         if cfg.family == "encdec":
             k_new, v_new = cache["k"].clone(), cache["v"].clone()
             for i in range(cfg.dec_layers):
-                pl_ = layer(params["dec_layers"], i)
+                pl_ = layer_of(params, "dec_layers", i)
                 x = _attn_step(pl_, x, k_new[i], v_new[i], pos, idx, None)
                 z = norm(pl_["lnx"], x, cfg.norm_eps)
                 qx, _, _ = qkv_proj(pl_["xattn"], z, cfg,
                                     pos.reshape(-1, 1, 1))
-                ox = attend(qx, cache["xk"][i], cache["xv"][i], causal=False)
+                if cache_seq_axis("xk").n > 1:
+                    raise NotImplementedError(
+                        "cross attention over encoder positions cut over "
+                        "ranks (kv heads that do not divide over `model`)")
+                ox = attend(qx, *local_kv(qx, cache["xk"][i],
+                                          cache["xv"][i], cfg),
+                            causal=False)
                 x = x + attn_out(pl_["xattn"], ox, cfg)
                 z = norm(pl_["ln2"], x, cfg.norm_eps)
-                x = x + mlp_apply(pl_["mlp"], z, cfg.act)
+                x = x + mlp_apply(pl_["mlp"], z, cfg.act, cfg.d_ff)
             return _last_logits(cfg, params, x), \
                 {"k": k_new, "v": v_new, "xk": cache["xk"],
                  "xv": cache["xv"], "pos": pos}
@@ -332,7 +390,7 @@ def decode_step(cfg: ModelConfig):
         st, cc = [], []
 
         def ssm_once(h, i):
-            pl_ = layer(params["layers"], i)
+            pl_ = layer_of(params, "layers", i)
             z = norm(pl_["ln1"], h, cfg.norm_eps)
             c_in = cache["conv"][i]
             y, (s_new, c_new) = ssm_apply(
@@ -348,7 +406,7 @@ def decode_step(cfg: ModelConfig):
             x = _attn_step({"ln1": shared["ln1"], "attn": shared["attn"]},
                            x, k_new[grp], v_new[grp], pos, idx, None)
             z = norm(shared["ln2"], x, cfg.norm_eps)
-            x = x + mlp_apply(shared["mlp"], z, cfg.act)
+            x = x + mlp_apply(shared["mlp"], z, cfg.act, cfg.d_ff)
         for i in range(G * period, G * period + R):
             x = ssm_once(x, i)
         return _last_logits(cfg, params, x), \

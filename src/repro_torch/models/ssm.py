@@ -14,6 +14,17 @@ the flattened (channel, state) pairs through `kernels.ops.ssm_scan` (K5 on
 a CUDA tensor, its plain version on the CPU; under autograd K5's forward
 and the plain version's gradient); longer prefills take the chunked SSD
 form (`_ssd_chunked`), plain torch as in the JAX package.
+
+On a model axis above 1 (`distribution/tensor_parallel.py`) the block
+runs on this rank's channels when its heads divide over `model`: in_proj
+and bc_proj are column-parallel, gathered whole (their contiguous cut does
+not follow the x/z and B/C halves) and the x and z halves cut to the
+rank's channels; dt_proj gives the rank's heads; the depthwise conv runs
+whole (its cache is whole in `cache_shardings`) and is cut after; the
+recurrence, K5 included, runs on the rank's channels, whose state is the
+rank's slice of the `ssm_state` cache; out_proj is row-parallel. When the
+heads do not divide, every rank runs all channels, and the state is cut to
+the cache's layout at the end.
 """
 
 from __future__ import annotations
@@ -23,6 +34,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .layers import normal_init
+from ..distribution.tensor_parallel import col_whole, model_axis, row
 from ..kernels import ops as kops
 
 
@@ -63,21 +75,43 @@ def _causal_conv(x, w, cache=None):
 def ssm_apply(p, x, cfg: ModelConfig, state=None, conv_cache=None):
     """x (B,S,D) -> (y (B,S,D), (state, conv_cache)).
 
-    state (B, Din, N) carries across calls (decode); None -> zeros.
+    state (B, Din, N) carries across calls (decode); None -> zeros. On a
+    model axis above 1 the state is this rank's channels of it when Din
+    divides over the axis (as `cache_shardings` cuts it).
     """
     B, S, D = x.shape
     Din = 2 * D
     N = cfg.ssm_state
     H = max(1, Din // 64)
     ch_per_h = Din // H
+    ax = model_axis()
+    local = ax.divides(H)                   # this rank's heads/channels
+    state_cut = ax.divides(Din)
 
-    xz = x @ p["in_proj"]
+    xz = col_whole(x, p["in_proj"], 2 * Din, ax)
     xin, z = torch.chunk(xz, 2, dim=-1)                    # (B,S,Din)
-    xin, new_conv = _causal_conv(xin, p["conv_w"], conv_cache)
-    bc = x @ p["bc_proj"]
+    conv_w = p["conv_w"]
+    if conv_w.shape[-1] != Din:
+        conv_w = ax.gather(conv_w, -1)
+    xin, new_conv = _causal_conv(xin, conv_w, conv_cache)
+    bc = col_whole(x, p["bc_proj"], 2 * N, ax)
+    if local:       # whole B and C, each rank's channels' use of them
+        bc = ax.enter(bc)
     Bmat, Cmat = torch.chunk(bc.float(), 2, dim=-1)        # (B,S,N)
-    dt = F.softplus(x.float() @ p["dt_proj"].float() + p["dt_bias"])
-    a = torch.exp(-dt * torch.exp(p["a_log"]))             # (B,S,H) in (0,1)
+    dt_bias, a_log, d_skip = p["dt_bias"], p["a_log"], p["d_skip"]
+    if local:
+        xin, z = ax.split(xin, -1), ax.split(z, -1)
+        dt_bias, a_log = ax.split(dt_bias, -1), ax.split(a_log, -1)
+        d_skip = ax.split(d_skip, -1)
+        Din, H = Din // ax.n, H // ax.n
+        dt = F.softplus(ax.enter(x.float()) @ p["dt_proj"].float()
+                        + dt_bias)
+    else:
+        dt = F.softplus(col_whole(x.float(), p["dt_proj"].float(), H, ax)
+                        + dt_bias)
+        if state is not None and state.shape[1] != Din:
+            state = ax.all_gather(state, 1)
+    a = torch.exp(-dt * torch.exp(a_log))                  # (B,S,H) in (0,1)
 
     xf = xin.float()
     # broadcast per-head decay to channels, inputs to (c, n) pairs
@@ -94,16 +128,18 @@ def ssm_apply(p, x, cfg: ModelConfig, state=None, conv_cache=None):
         h0 = None if state is None else state.reshape(B, Din * N)
         ys = kops.ssm_scan(a_cn, x_cn, h0)
         h = ys.reshape(B, S, Din, N)
-        y = torch.einsum("bscn,bsn->bsc", h, Cmat) + p["d_skip"] * xf
+        y = torch.einsum("bscn,bsn->bsc", h, Cmat) + d_skip * xf
         new_state = h[:, -1]                               # (B, Din, N)
     else:
         # prefill: the Mamba2 SSD chunked form (per-head (c x c) masked
         # matmuls over (B,S,N) + (B,S,Din) streams)
         y, h_fin = _ssd_chunked(a, dt, Bmat, Cmat, xf, H, ch_per_h)
-        y = y + p["d_skip"] * xf
+        y = y + d_skip * xf
         new_state = h_fin.reshape(B, Din, N)
+    if state_cut and not local:
+        new_state = ax.local(new_state, 1)
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], (new_state, new_conv)
+    return row(y, p["out_proj"], 2 * D, ax), (new_state, new_conv)
 
 
 def _ssd_chunked(a, dt, Bmat, Cmat, xf, H: int, ch: int,

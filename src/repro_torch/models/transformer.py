@@ -24,7 +24,10 @@ from typing import Any
 import torch
 from torch.utils import checkpoint as _ckpt
 
-from .attention import attend, attn_init, attn_out, qkv_proj
+from ..distribution.context import current_context, with_mesh_context
+from ..distribution.tensor_parallel import (cut, layer_whole, materialize,
+                                            model_axis)
+from .attention import attend, attn_init, attn_out, local_kv, qkv_proj
 from .config import ModelConfig
 from .layers import (embed_apply, embed_init, make_norm, mlp_apply, mlp_init,
                      normal_init)
@@ -47,6 +50,12 @@ def layer(tree, i: int):
     """Layer `i` of a tree of stacked (L, ...) tensors."""
     return {k: (layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def layer_of(params, key: str, i: int):
+    """Layer `i` of the stacked tree `params[key]`, its data-cut leaves
+    gathered whole (`layer_whole`)."""
+    return layer_whole(layer(params[key], i), key)
 
 
 def unstack(tree, n: int) -> list:
@@ -204,9 +213,17 @@ def _maybe_remat(fn, cfg: ModelConfig):
     products or the dense block's post-attention residual and recompute
     the rest in the backward (selective checkpointing), anything else
     ("full") recomputes the whole layer. Without grad mode `fn` runs as
-    it is."""
+    it is. The recomputation runs in the context of the forward (its mesh
+    and layouts: on CUDA autograd recomputes in a thread of its own)."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    mesh, layouts = current_context()
+    if mesh is not None:
+        inner = fn
+
+        def fn(*a):
+            with with_mesh_context(mesh, **layouts):
+                return inner(*a)
     policy = {"dots": _save_dots,
               "save_residuals": _save_residual1}.get(cfg.remat)
     if policy is None:
@@ -216,11 +233,19 @@ def _maybe_remat(fn, cfg: ModelConfig):
                                        context_fn=ctx)
 
 
+def _layer_body(fn, cfg: ModelConfig, key: str = "layers"):
+    """`fn(pl_, ...)` over one layer `pl_` of the stacked tree
+    `params[key]`, its data-cut leaves gathered inside the layer (under
+    remat: in the recomputation again, so only this rank's slices stay
+    saved), under `_maybe_remat`."""
+    return _maybe_remat(lambda pl_, *a: fn(layer_whole(pl_, key), *a), cfg)
+
+
 def _dense_block(pl_, x, cfg: ModelConfig, positions, window):
     _, norm = make_norm(cfg.norm)
     h = norm(pl_["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_proj(pl_["attn"], h, cfg, positions)
-    o = attend(q, k, v, causal=True, window=window)
+    o = attend(q, *local_kv(q, k, v, cfg), causal=True, window=window)
     a = attn_out(pl_["attn"], o, cfg)
     # The JAX package pins the residual stream to (dp, None, None) here
     # and below (`constrain_residual`), a layout hint for GSPMD; under
@@ -229,19 +254,20 @@ def _dense_block(pl_, x, cfg: ModelConfig, positions, window):
     with checkpoint_name("residual1"):
         x = x + a
     h = norm(pl_["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(pl_["mlp"], h, cfg.act)
+    return x + mlp_apply(pl_["mlp"], h, cfg.act, cfg.d_ff)
 
 
 def _moe_block(pl_, x, cfg: ModelConfig, positions):
     _, norm = make_norm(cfg.norm)
     h = norm(pl_["ln1"], x, cfg.norm_eps)
     q, k, v = qkv_proj(pl_["attn"], h, cfg, positions)
-    o = attend(q, k, v, causal=True, window=cfg.sliding_window)
+    o = attend(q, *local_kv(q, k, v, cfg), causal=True, window=cfg.sliding_window)
     x = x + attn_out(pl_["attn"], o, cfg)
     h = norm(pl_["ln2"], x, cfg.norm_eps)
     y, aux = moe_apply(pl_["moe"], h, cfg)
     if cfg.dense_residual_ff:
-        y = y + mlp_apply(pl_["dense_mlp"], h, cfg.act)
+        y = y + mlp_apply(pl_["dense_mlp"], h, cfg.act,
+                          cfg.dense_residual_ff)
     return x + y, aux
 
 
@@ -273,21 +299,21 @@ def forward_hidden(cfg: ModelConfig, params: Params, x, positions):
     check_family(cfg)
     layers = unstack(params["layers"], cfg.num_layers)
     if cfg.family == "dense":
-        body = _maybe_remat(lambda pl_, h: _dense_block(
+        body = _layer_body(lambda pl_, h: _dense_block(
             pl_, h, cfg, positions, cfg.sliding_window), cfg)
         for pl_ in layers:
             x = body(pl_, x)
         return x, 0.0
     if cfg.family == "moe":
-        body = _maybe_remat(lambda pl_, h: _moe_block(pl_, h, cfg,
-                                                      positions), cfg)
+        body = _layer_body(lambda pl_, h: _moe_block(pl_, h, cfg,
+                                                     positions), cfg)
         aux = 0.0
         for pl_ in layers:
             x, a = body(pl_, x)
             aux = aux + a
         return x, aux
     if cfg.family == "ssm":
-        body = _maybe_remat(lambda pl_, h: _rwkv_block(pl_, h, cfg)[0], cfg)
+        body = _layer_body(lambda pl_, h: _rwkv_block(pl_, h, cfg)[0], cfg)
         for pl_ in layers:
             x = body(pl_, x)
         return x, 0.0
@@ -301,7 +327,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, x, positions):
             h = _dense_block(shared, h, cfg, positions, None)
         return h
 
-    body = _maybe_remat(hybrid, cfg)
+    body = _layer_body(hybrid, cfg)
     for i, pl_ in enumerate(layers):
         x = body(pl_, x, params["shared_attn"]
                  if i % period == period - 1 else None)
@@ -315,12 +341,12 @@ def encode(cfg: ModelConfig, params: Params, x_enc, positions):
     def enc_block(pl_, h):
         z = norm(pl_["ln1"], h, cfg.norm_eps)
         q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
-        o = attend(q, k, v, causal=False)
+        o = attend(q, *local_kv(q, k, v, cfg), causal=False)
         h = h + attn_out(pl_["attn"], o, cfg)
         z = norm(pl_["ln2"], h, cfg.norm_eps)
-        return h + mlp_apply(pl_["mlp"], z, cfg.act)
+        return h + mlp_apply(pl_["mlp"], z, cfg.act, cfg.d_ff)
 
-    body = _maybe_remat(enc_block, cfg)
+    body = _layer_body(enc_block, cfg, "enc_layers")
     for pl_ in unstack(params["enc_layers"], cfg.enc_layers):
         x_enc = body(pl_, x_enc)
     return norm(params["enc_final_norm"], x_enc, cfg.norm_eps)
@@ -329,8 +355,8 @@ def encode(cfg: ModelConfig, params: Params, x_enc, positions):
 def decode_trunk(cfg: ModelConfig, params: Params, x_dec, enc_out,
                  positions, enc_positions):
     """Causal decoder with cross-attention (encdec family)."""
-    body = _maybe_remat(lambda pl_, h, enc: _dec_block(
-        pl_, h, enc, cfg, positions, enc_positions)[0], cfg)
+    body = _layer_body(lambda pl_, h, enc: _dec_block(
+        pl_, h, enc, cfg, positions, enc_positions)[0], cfg, "dec_layers")
     for pl_ in unstack(params["dec_layers"], cfg.dec_layers):
         x_dec = body(pl_, x_dec, enc_out)
     return x_dec
@@ -343,15 +369,15 @@ def _dec_block(pl_, h, enc_out, cfg: ModelConfig, positions, enc_positions):
     _, norm = make_norm(cfg.norm)
     z = norm(pl_["ln1"], h, cfg.norm_eps)
     q, k, v = qkv_proj(pl_["attn"], z, cfg, positions)
-    o = attend(q, k, v, causal=True)
+    o = attend(q, *local_kv(q, k, v, cfg), causal=True)
     h = h + attn_out(pl_["attn"], o, cfg)
     z = norm(pl_["lnx"], h, cfg.norm_eps)
     qx, _, _ = qkv_proj(pl_["xattn"], z, cfg, positions)
     _, kx, vx = qkv_proj(pl_["xattn"], enc_out, cfg, enc_positions)
-    ox = attend(qx, kx, vx, causal=False)
+    ox = attend(qx, *local_kv(qx, kx, vx, cfg), causal=False)
     h = h + attn_out(pl_["xattn"], ox, cfg)
     z = norm(pl_["ln2"], h, cfg.norm_eps)
-    return h + mlp_apply(pl_["mlp"], z, cfg.act), (k, v, kx, vx)
+    return h + mlp_apply(pl_["mlp"], z, cfg.act, cfg.d_ff), (k, v, kx, vx)
 
 
 def _unembed_weight(cfg: ModelConfig, params: Params):
@@ -364,18 +390,36 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden, labels,
                  chunk: int = 512):
     """Cross-entropy over the vocab without materializing (B, S, V)
     logits: the sequence in chunks of `chunk` positions (the last padded,
-    its labels -1), logits in f32 per chunk, the mean over labels >= 0."""
+    its labels -1), logits in f32 per chunk, the mean over labels >= 0.
+    With the unembedding cut over the vocab on `model`, each rank holds
+    its columns of the logits: their maximum, the sum of their exps and
+    the label's logit are reduced over the model group."""
     B, S, D = hidden.shape
     W = _unembed_weight(cfg, params)
+    ax = model_axis()
+    v_loc = W.shape[-1]
+    vcut = cut(W, -1, cfg.vocab_size)
+    if vcut:
+        hidden = ax.enter(hidden)
     c = min(chunk, S)
     tot = cnt = 0.0
     for s0 in range(0, S, c):
         h = hidden[:, s0:s0 + c]
         lab = labels[:, s0:s0 + c]
         logits = (h @ W).float()                                # (B,c,V)
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1,
-                          torch.clamp(lab, min=0)[..., None].long())[..., 0]
+        if not vcut:
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, torch.clamp(
+                lab, min=0)[..., None].long())[..., 0]
+        else:
+            m = ax.all_reduce(logits.detach().amax(-1, keepdim=True), "max")
+            logz = m[..., 0] + torch.log(ax.reduce(
+                torch.exp(logits - m).sum(-1)))
+            ids = lab.long() - ax.index * v_loc
+            mine = (ids >= 0) & (ids < v_loc)
+            ll = ax.reduce(torch.gather(logits, -1, torch.where(
+                mine, ids, torch.zeros_like(ids))[..., None])[..., 0]
+                * mine.float())
         valid = (lab >= 0).float()
         tot = tot + torch.sum((logz - ll) * valid)
         cnt = cnt + valid.sum()
@@ -383,7 +427,7 @@ def chunked_xent(cfg: ModelConfig, params: Params, hidden, labels,
 
 
 def _embed_with_frontend(cfg: ModelConfig, params: Params, batch):
-    x = embed_apply(params["embed"], batch["tokens"])
+    x = embed_apply(params["embed"], batch["tokens"], cfg.vocab_size)
     if cfg.frontend is not None and "frontend_embeds" in batch:
         fe = batch["frontend_embeds"].to(x.dtype)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
@@ -397,6 +441,7 @@ def train_loss(cfg: ModelConfig):
     check_family(cfg)
 
     def loss_fn(params, batch):
+        params = materialize(params)
         tokens = batch["tokens"]
         labels = batch["labels"]
         B, S = tokens.shape
@@ -404,13 +449,13 @@ def train_loss(cfg: ModelConfig):
         positions = torch.arange(S, device=dev)
         if cfg.family == "encdec":
             src = batch["src_tokens"]
-            x_enc = embed_apply(params["embed"], src)
+            x_enc = embed_apply(params["embed"], src, cfg.vocab_size)
             if cfg.frontend is not None and "frontend_embeds" in batch:
                 fe = batch["frontend_embeds"].to(x_enc.dtype)
                 x_enc = torch.cat([fe, x_enc[:, fe.shape[1]:]], dim=1)
             enc_pos = torch.arange(src.shape[1], device=dev)
             enc_out = encode(cfg, params, x_enc, enc_pos)
-            x = embed_apply(params["embed"], tokens)
+            x = embed_apply(params["embed"], tokens, cfg.vocab_size)
             h = decode_trunk(cfg, params, x, enc_out, positions, enc_pos)
             aux = 0.0
         else:

@@ -136,19 +136,15 @@ def test_admission_reject_is_atomic():
 
 
 def test_waiting_paths_raise_not_implemented(tmp_path):
-    """What still waits for its port raises, naming its ROADMAP item:
-    training over a model axis above 1 (item 19; training recovery, once
-    item 15, is ported: tests/test_torch_train.py). A non-config network
-    is a TypeError.
+    """A non-config network is a TypeError. (Training recovery:
+    tests/test_torch_train.py; training over a model axis above 1:
+    tests/test_torch_tensor_parallel.py.)
     (Cluster artifacts are ported: a directory without a manifest is
     unreadable in both packages, tests/test_torch_cluster.py. Resilience
     and mode changes: tests/test_torch_resilience.py; LM networks and
     `register_decode`: tests/test_torch_continuous.py.)"""
     from repro.analysis.runner import analyze_cluster as r_analyze_cluster
     from repro_torch.analysis.runner import analyze_cluster
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import HostMesh
-    from repro_torch.train.loop import build_state
     srv = TS.Server(TH.scaled_paper_machine(4), backend="torch",
                     device="cpu")
 
@@ -161,11 +157,6 @@ def test_waiting_paths_raise_not_implemented(tmp_path):
     for fn in (r_analyze_cluster, analyze_cluster):
         with pytest.raises(FileNotFoundError, match="cluster.json"):
             fn(str(tmp_path))
-    mesh = HostMesh(shape={"data": 1, "model": 2}, rank=0, world=2,
-                    data_index=0, model_index=0)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        build_state(get_config("smollm-135m", reduced=True), mesh,
-                    device="cpu")
 
 
 def test_save_load_serves_bit_exact(tmp_path):
