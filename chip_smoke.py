@@ -2,6 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root, one GPU
+    python3 chip_smoke.py --decode-turns TREE [TREE ...]   # e.g. A B B A
+
+The second form reads phases 6, 7 and 9's bf16 decode steps (zamba2-1.2B,
+rwkv6-1.6B, seamless-m4t-medium) with the package of each TREE (the root
+of an unpacked `git archive`), one fresh process per turn, in the order
+given: the measuring code is this script's for every tree, so only the
+package differs between turns. Results go to
+chiprun_out/decode_turns.json.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -47,7 +55,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      shapes and on the moe and encdec paths' shapes: head dim 128 with 6 q
      heads per kv head, non-causal with Sq != Skv, Sq = 1), with times at
      every LM path's shapes beside the plain version's, the library
-     call's and the bound; zamba2-1.2B at full width as a float32
+     call's and the bound (K5 and `torch.addcmul` at the decode step's
+     shape in five alternating turns each, medians kept); zamba2-1.2B at full width as a float32
      copy: prefill of 32 tokens + 4 decode steps, card against CPU, then
      served through `Server.register_decode` (4 slots, 8 tickets, 4 of
      them arriving mid-stream), every stream equal token for token to the
@@ -109,20 +118,36 @@ Phases, each printing its own lines; any failure exits non-zero:
      both ranks' params bit-equal and within rtol 1e-4 of one rank); a
      step's K4 launches (counters and profiler), median time, tokens/s,
      idle share, peak memory and share of the bf16 peak;
- 12. tensor parallelism and the dry run: smollm-135M at full width (4 of
-     30 layers, float32) on the (1, 3) model mesh as three processes on
-     the card over gloo (this script with `--tp-rank`; 3 q heads and 1 kv
-     head a rank): two ZeRO-1 train steps (whole-gathered leaves within
+ 12. tensor parallelism and the dry run: (a) smollm-135M at full width (4
+     of 30 layers, float32) on the (1, 3) model mesh as three processes
+     on the card over gloo (this script with `--tp-rank`; 3 q heads and 1
+     kv head a rank): two ZeRO-1 train steps (whole-gathered leaves within
      rtol 1e-4 of one rank, replicated leaves bit-equal across ranks) and
      a prefill plus 2 decode steps (logits within rtol 1e-3, greedy
-     tokens equal), K4 per rank per step (counters and profiler); the dry
-     run (`launch.dryrun.lower_cell`, --device cuda) of smollm-135m
-     train_4k at B 8 on the 1 x 1 mesh against the same step on the card
-     (argument bytes and per-device FLOPs equal, predicted memory and the
-     roofline bound printed beside the measured ones); and two full-size
-     production cells through `python -m repro_torch.launch.dryrun` on
-     the host (smollm-135m train_4k on 16 x 16, zamba2-1.2b decode_32k on
-     2 x 16 x 16) with their seconds.
+     tokens equal), K4 per rank per step (counters and profiler); on the
+     same ranks seamless-m4t-medium at full width (2 + 2 layers, float32,
+     B 8, source and prompt of 48, a cache of 54), whose 16 heads do not
+     divide over 3, so its self-attention cache and its cross-attention
+     keys and values are cut on positions: a prefill plus 2 decode steps
+     against one rank (logits within rtol 1e-3, tokens equal, 6 K4 per
+     prefill and 2 per decode step per rank: the cross attention gathers
+     the encoder positions whole for K4); (d) smollm-135M at full width (4 layers, float32)
+     with an int8 KV cache of 136 positions on the (1, 2) model mesh as
+     two processes on the card (`--kv8-rank`): 3 kv heads do not divide
+     over 2, so the cache and its scales are cut on positions; a prefill
+     of 8 x 128 plus 2 decode steps against one rank (max |d logits| <=
+     4e-3 x max |logits|, the int8 twin's bf16-ulp limit; tokens equal; 4
+     K4 per prefill per rank; the gathered int8 cache within 1 of one
+     rank's, the prefill's scales within rtol 1e-5 and the decode's within
+     the logits' limit); K4 against its plain version at each of
+     these paths' shapes; (b) the dry run (`launch.dryrun.lower_cell`,
+     --device cuda) of smollm-135m train_4k at B 8 on the 1 x 1 mesh
+     against the same step on the card (argument bytes and per-device
+     FLOPs equal, predicted memory and the roofline bound printed beside
+     the measured ones); and (c) two full-size production cells through
+     `python -m repro_torch.launch.dryrun` on the host (smollm-135m
+     train_4k on 16 x 16, zamba2-1.2b decode_32k on 2 x 16 x 16) with
+     their seconds.
 
 Each LM phase takes its admission period from the modeled bound it
 prints, and prints its seconds and peak device memory. Then a `[phases]`
@@ -1018,7 +1043,8 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep, clock) -> dict:
         err = close(f"K5 {(B, T, D)} h0={with_h0}", ssm_scan(a, x, h0),
                     ssm_scan_plain(a, x, h0), 1e-6, 1e-5)
         k5["max_abs_err"] = max(k5["max_abs_err"], err)
-        ms = graph_ms(torch, [lambda s_=s_: ssm_scan(*s_) for s_ in sets])
+        k5_fns = [lambda s_=s_: ssm_scan(*s_) for s_ in sets]
+        ms = graph_ms(torch, k5_fns)
         pms = graph_ms(torch, [lambda s_=s_: ssm_scan_plain(*s_)
                                for s_ in sets])
         lib_ms = None
@@ -1026,9 +1052,23 @@ def lm_phase(torch, np, rng, kernels, report, smi, rtdep, clock) -> dict:
             close("torch.addcmul as K5 at T = 1",
                   torch.addcmul(x, a, h0[:, None]),
                   ssm_scan_plain(a, x, h0), 1e-6, 1e-5)
-            lib_ms = graph_ms(torch, [
-                lambda s_=s_: torch.addcmul(s_[1], s_[0], s_[2][:, None])
-                for s_ in sets])
+            lib_fns = [lambda s_=s_: torch.addcmul(s_[1], s_[0],
+                                                   s_[2][:, None])
+                       for s_ in sets]
+            # the two within 0.1 us of each other: five turns each, in
+            # alternation, and the medians kept
+            turns = {"k5": [], "addcmul": []}
+            for _ in range(5):
+                turns["k5"].append(graph_ms(torch, k5_fns))
+                turns["addcmul"].append(graph_ms(torch, lib_fns))
+            ms = statistics.median(turns["k5"])
+            lib_ms = statistics.median(turns["addcmul"])
+            k5["turns"] = turns
+            say(f"[K5] against torch.addcmul at {(B, T, D)}, five turns "
+                f"each (ms): K5 " + ", ".join(f"{t:.5f}" for t in
+                                              turns["k5"])
+                + "; addcmul " + ", ".join(f"{t:.5f}" for t in
+                                           turns["addcmul"]))
         bd = Bound()
         b = bd.add(3 * B * T * D * 4 + (B * D * 4 if with_h0 else 0),
                    2 * B * T * D, PEAK_F32_FLOPS)
@@ -2720,11 +2760,96 @@ TP_WORLD, TP_LAYERS, TP_B, TP_S, TP_STEPS, TP_NEW = 3, 4, 8, 128, 2, 2
 TP_EPS, DEFAULT_EPS = 1e-3, 1e-8
 
 
+# phase 12a's encdec run on the same mesh: seamless-m4t-medium at full
+# width (16 heads, which do not divide over 3: the self-attention cache
+# and the cross-attention keys and values are cut on positions), 2
+# encoder and 2 decoder layers, float32, B 8, source and prompt of 48, a
+# cache of 54
+S2S_LAYERS, S2S_S, S2S_LEN = 2, 48, 54
+# the (1, 2) model mesh of phase 12d: two processes on the one card,
+# smollm-135M at full width with an int8 KV cache (3 kv heads do not
+# divide over 2: the cache and its scales are cut on positions), 4 of 30
+# layers, float32, B 8, prompts of 128, a cache of 136; logits held to
+# max|d| <= KV8_TOL x max|logits|: the int8 twin's bf16-ulp limit of
+# tests/test_torch_models.py (4e-3)
+KV8_WORLD, KV8_LEN, KV8_TOL = 2, 136, 4e-3
+
+
 def _tp_cfg():
     import dataclasses
     from repro_torch.configs import get_config
     return dataclasses.replace(get_config("smollm-135m"), dtype="float32",
                                num_layers=TP_LAYERS)
+
+
+def _s2s_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("seamless-m4t-medium"),
+                               dtype="float32", enc_layers=S2S_LAYERS,
+                               dec_layers=S2S_LAYERS)
+
+
+def _kv8_cfg():
+    import dataclasses
+    return dataclasses.replace(_tp_cfg(), kv_cache_dtype="int8")
+
+
+def _serve_on_mesh(cfg, mesh, whole, batch, max_len, prefix="",
+                   enc_len=0, keep_cache=False) -> dict:
+    """A prefill and TP_NEW greedy decode steps of `cfg` from the whole
+    params `whole` on this rank of `mesh` (its slices of the params and
+    the cache, as `param_shardings` and `cache_shardings` cut them):
+    `prefix` + logits{i} (gathered whole), tokens{i}, k4_prefill and
+    k4_decode (K4's launches in the prefill and in each decode step on
+    this rank), cut (the cache leaves cut on positions) and, with
+    `keep_cache`, prefill_cache/{leaf} and cache/{leaf} (the cache after
+    the prefill and after the last step, gathered whole)."""
+    import numpy as np
+    import torch
+    from repro_torch.distribution.context import with_mesh_context
+    from repro_torch.distribution.sharding import (NamedSharding, P,
+                                                   cache_shardings,
+                                                   param_shardings)
+    from repro_torch.kernels import _lib
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    from repro_torch.tree import tree_map
+    B = batch["tokens"].shape[0]
+    ps = param_shardings(cfg, mesh, whole)
+    cache = init_cache(cfg, B, max_len, enc_len=enc_len, device="cuda")
+    cs = cache_shardings(cfg, mesh, cache)
+    p_loc = tree_map(lambda s_, x_: s_.shard(x_.cuda()), ps, whole)
+    c_loc = {k: cs[k].shard(v) for k, v in cache.items()}
+    rows = NamedSharding(mesh, P())
+    out = {prefix + "cut": np.array(sorted(
+        k for k, s_ in cs.items() if len(s_.spec) > 3 and s_.spec[3]))}
+    _lib.reset_launch_counts()
+    with torch.no_grad(), with_mesh_context(mesh, params=ps, cache=cs):
+        logits, c_loc = prefill_step(cfg)(p_loc, batch, c_loc)
+        torch.cuda.synchronize()
+        out[prefix + "k4_prefill"] = np.array(
+            _lib.launch_counts()["flash_attention"])
+        if keep_cache:
+            for k, v in c_loc.items():
+                out[f"{prefix}prefill_cache/{k}"] = \
+                    cs[k].gather(v).cpu().numpy()
+        k4 = []
+        for i in range(TP_NEW + 1):
+            out[f"{prefix}logits{i}"] = rows.gather(
+                logits).float().cpu().numpy()
+            if i == TP_NEW:
+                break
+            tok = torch.argmax(logits[:, -1], -1, keepdim=True)
+            out[f"{prefix}tokens{i}"] = tok.cpu().numpy()
+            _lib.reset_launch_counts()
+            logits, c_loc = decode_step(cfg)(p_loc, c_loc, tok)
+            torch.cuda.synchronize()
+            k4.append(_lib.launch_counts()["flash_attention"])
+        out[prefix + "k4_decode"] = np.array(k4)
+        if keep_cache:
+            for k, v in c_loc.items():
+                out[f"{prefix}cache/{k}"] = cs[k].gather(v).cpu().numpy()
+    return out
 
 
 def _tp_run(mesh, profile: bool = False) -> dict:
@@ -2735,11 +2860,7 @@ def _tp_run(mesh, profile: bool = False) -> dict:
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticTokens
-    from repro_torch.distribution.context import with_mesh_context
-    from repro_torch.distribution.sharding import (NamedSharding, P,
-                                                   cache_shardings)
     from repro_torch.kernels import _lib
-    from repro_torch.models import decode_step, init_cache, prefill_step
     from repro_torch.models.transformer import init_params
     from repro_torch.train.loop import build_state, sharded_train_step
     from repro_torch.train.optimizer import OptConfig
@@ -2798,24 +2919,34 @@ def _tp_run(mesh, profile: bool = False) -> dict:
     rng = np.random.default_rng(SEED + 12)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_B, TP_S)),
                               device="cuda")
-    cache = init_cache(cfg, TP_B, TP_S + 8, device="cuda")
-    cs = cache_shardings(cfg, mesh, cache)
-    p_loc = tree_map(lambda s_, x_: s_.shard(x_.cuda()), ps, whole)
-    c_loc = {k: cs[k].shard(v) for k, v in cache.items()}
-    rows = NamedSharding(mesh, P())
-    _lib.reset_launch_counts()
-    with torch.no_grad(), with_mesh_context(mesh, params=ps, cache=cs):
-        logits, c_loc = prefill_step(cfg)(p_loc, {"tokens": prompts}, c_loc)
-        torch.cuda.synchronize()
-        out["k4_prefill"] = np.array(_lib.launch_counts()["flash_attention"])
-        for i in range(TP_NEW + 1):
-            out[f"logits{i}"] = rows.gather(logits).float().cpu().numpy()
-            if i == TP_NEW:
-                break
-            tok = torch.argmax(logits[:, -1], -1, keepdim=True)
-            out[f"tokens{i}"] = tok.cpu().numpy()
-            logits, c_loc = decode_step(cfg)(p_loc, c_loc, tok)
+    out.update(_serve_on_mesh(cfg, mesh, whole, {"tokens": prompts},
+                              TP_S + 8))
+    del whole
+    # seamless-m4t-medium on the same mesh, its caches cut on positions
+    cfg = _s2s_cfg()
+    whole = init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    src = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_B, S2S_S)),
+                          device="cuda")
+    out.update(_serve_on_mesh(cfg, mesh, whole, {"tokens": src,
+                                                 "src_tokens": src},
+                              S2S_LEN, "s2s/", enc_len=S2S_S))
     return out
+
+
+def _kv8_run(mesh) -> dict:
+    """Phase 12d's run on this rank of `mesh`: a prefill and TP_NEW
+    greedy decode steps of smollm-135M (full width, TP_LAYERS layers,
+    float32) over an int8 KV cache on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import init_params
+    cfg = _kv8_cfg()
+    whole = init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 13)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_B, TP_S)),
+                              device="cuda")
+    return _serve_on_mesh(cfg, mesh, whole, {"tokens": prompts}, KV8_LEN,
+                          keep_cache=True)
 
 
 def tp_rank_main(rank: int, world: int, work: Path) -> None:
@@ -2834,6 +2965,27 @@ def tp_rank_main(rank: int, world: int, work: Path) -> None:
         rank=rank, timeout=datetime.timedelta(seconds=180))
     from repro_torch.launch.mesh import make_host_mesh
     out = _tp_run(make_host_mesh(data=1, model=world), profile=True)
+    np.savez(work / f"rank{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def kv8_rank_main(rank: int, world: int, work: Path) -> None:
+    """One rank of phase 12d (run as `chip_smoke.py --kv8-rank R W DIR`):
+    join a gloo group on the card and run `_kv8_run` on the (1, W) model
+    mesh."""
+    import datetime
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work}/rendezvous", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=180))
+    from repro_torch.launch.mesh import make_host_mesh
+    out = _kv8_run(make_host_mesh(data=1, model=world))
     np.savez(work / f"rank{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -2875,10 +3027,10 @@ def _dryrun_cli(args: list) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def tp_phase(torch, np, kernels, report, smi, parts: str = "abc") -> int:
-    """Phase 12 (its sub-phases `parts`). Returns K4's launches on phase
-    12a's tensor-parallel path (all ranks: the train steps and the
-    prefill)."""
+def tp_phase(torch, np, kernels, report, smi, parts: str = "abcd") -> int:
+    """Phase 12 (its sub-phases `parts`). Returns K4's launches on the
+    tensor-parallel paths of phases 12a (all ranks: the train steps and
+    the two prefills) and 12d (all ranks' prefills)."""
     out = report.setdefault("tp", {})
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -2893,6 +3045,8 @@ def tp_phase(torch, np, kernels, report, smi, parts: str = "abc") -> int:
     k4_path = 0
     if "a" in parts:
         k4_path = _tp_mesh_check(torch, np, kernels, out, smi)
+    if "d" in parts:
+        k4_path += _kv8_mesh_check(torch, np, kernels, out, smi)
     if "b" in parts:
         _dryrun_check(torch, np, kernels, out, smi)
     for name, p in cells.items():
@@ -2903,30 +3057,35 @@ def tp_phase(torch, np, kernels, report, smi, parts: str = "abc") -> int:
 
 
 def k4_against_plain(torch, kernels, out, tag, shape, dtype, atol,
-                     rtol) -> float:
+                     rtol, causal: bool = True, sq=None) -> float:
     """K4 against its plain version on card tensors of `dtype` at the
-    causal shape (B, Hq, Hkv, S, D) that a phase-12 path gives it; fail
-    outside atol/rtol. Adds the error to K4's max_abs_err."""
+    shape (B, Hq, Hkv, S, D) that a phase-12 path gives it (`sq` q rows
+    against S keys when given), causal or not; fail outside atol/rtol.
+    Adds the error to K4's max_abs_err."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     B, Hq, Hkv, S, D = shape
     gen = torch.Generator("cuda").manual_seed(SEED + 12)
     q, k, v = (torch.randn(s_, generator=gen, device="cuda").to(dtype)
-               for s_ in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D)))
-    got = flash_attention(q, k, v).float()
-    want = flash_attention_plain(q, k, v).float()
+               for s_ in ((B, Hq, sq or S, D), (B, Hkv, S, D),
+                          (B, Hkv, S, D)))
+    got = flash_attention(q, k, v, causal=causal).float()
+    want = flash_attention_plain(q, k, v, causal).float()
     err = (got - want).abs().max().item()
+    mode = "causal" if causal else "non-causal"
     if not torch.allclose(got, want, atol=atol, rtol=rtol):
-        fail(f"[{tag}] K4 {shape} causal {dtype} disagrees with its plain "
+        fail(f"[{tag}] K4 {shape} {mode} {dtype} disagrees with its plain "
              f"version (max abs err {err}, atol {atol}, rtol {rtol})")
     k4 = kernels["flash_attention"]
     k4["max_abs_err"] = max(k4["max_abs_err"], err)
     out.setdefault("k4_against_plain", []).append(
-        {"shape": list(shape), "dtype": str(dtype), "max_abs_err": err,
-         "atol": atol, "rtol": rtol})
-    say(f"[{tag}] K4 at this path's shape {shape} causal {dtype}: max abs "
-        f"err {err:.3g} against the plain version (atol {atol}, rtol "
-        f"{rtol})")
+        {"shape": list(shape), "sq": sq, "causal": causal,
+         "dtype": str(dtype), "max_abs_err": err, "atol": atol,
+         "rtol": rtol})
+    rows = f" ({sq} q rows)" if sq else ""
+    say(f"[{tag}] K4 at this path's shape {shape}{rows} {mode} {dtype}: "
+        f"max abs err {err:.3g} against the plain version (atol {atol}, "
+        f"rtol {rtol})")
     del q, k, v, got, want
     return err
 
@@ -2940,22 +3099,24 @@ def _tp_mesh_check(torch, np, kernels, out, smi) -> int:
     ranks = [dict(np.load(work / f"rank{r}.npz")) for r in range(TP_WORLD)]
     secs = time.perf_counter() - t0
     want = _tp_run(make_host_mesh(1, 1))
-    worst = {"train": 0.0, "logits": 0.0}
+    worst = {"train": 0.0, "logits": 0.0, "s2s": 0.0}
     bad = []
     for r, got in enumerate(ranks):
         for k, w in want.items():
-            if k.startswith(("p/", "mu/", "logits")):
+            if k.startswith(("p/", "mu/", "logits", "s2s/logits")):
                 scale = float(np.abs(w).max()) or 1.0
                 err = float(np.abs(got[k] - w).max())
                 train = k.startswith(("p/", "mu/"))
-                worst["train" if train else "logits"] = max(
-                    worst["train" if train else "logits"], err / scale)
+                what = "train" if train else k.split("/")[0] \
+                    if "/" in k else "logits"
+                worst[what] = max(worst[what], err / scale)
                 tol = (1e-4, 1e-5) if train else (1e-3, 1e-3)
                 if not np.allclose(got[k], w, rtol=tol[0],
                                    atol=tol[1] * scale):
                     bad.append(f"rank {r} {k}: max abs err {err:.3g} "
                                f"(max |x| {scale:.3g})")
-            elif k.startswith(("tokens", "loss", "grad_norm")) and \
+            elif k.startswith(("tokens", "loss", "grad_norm",
+                               "s2s/tokens")) and \
                     not np.allclose(got[k], w, rtol=1e-5, atol=0):
                 bad.append(f"rank {r} {k}: {got[k].ravel()[:8]} vs one "
                            f"rank's {w.ravel()[:8]}")
@@ -2979,7 +3140,25 @@ def _tp_mesh_check(torch, np, kernels, out, smi) -> int:
     if any(int(r_["k4_prefill"]) != TP_LAYERS for r_ in ranks):
         fail(f"[tp] K4 launches per prefill: "
              f"{[int(r_['k4_prefill']) for r_ in ranks]}, want {TP_LAYERS}")
+    # seamless: each encoder layer's self attention, each decoder layer's
+    # self and cross attention, on all 16 heads on every rank
+    if any(list(r_["s2s/cut"]) != ["k", "v", "xk", "xv"] for r_ in ranks):
+        fail(f"[tp] seamless: the ranks cut {list(ranks[0]['s2s/cut'])} on "
+             f"positions, want k, v, xk and xv")
+    s2s_k4 = [int(r_["s2s/k4_prefill"]) for r_ in ranks]
+    if any(n != 3 * S2S_LAYERS for n in s2s_k4):
+        fail(f"[tp] seamless K4 launches per prefill per rank: {s2s_k4}, "
+             f"want {3 * S2S_LAYERS}")
+    # each decoder layer's cross attention over the gathered encoder
+    # positions; smollm's decode attends outside K4
+    s2s_step = [[int(n) for n in r_["s2s/k4_decode"]] for r_ in ranks]
+    if any(n != S2S_LAYERS for r_ in s2s_step for n in r_) or any(
+            r_["k4_decode"].any() for r_ in ranks):
+        fail(f"[tp] K4 launches per decode step per rank: seamless "
+             f"{s2s_step} (want {S2S_LAYERS}), smollm "
+             f"{[list(r_['k4_decode']) for r_ in ranks]} (want 0)")
     k4_path = sum(int(r_["k4_train"].sum()) + int(r_["k4_prefill"])
+                  + int(r_["s2s/k4_prefill"]) + int(r_["s2s/k4_decode"].sum())
                   for r_ in ranks)
     # the default eps: the leaf that disagrees most with one rank
     eps8 = {"eps": DEFAULT_EPS, "err_over_max": -1.0}
@@ -3006,7 +3185,18 @@ def _tp_mesh_check(torch, np, kernels, out, smi) -> int:
     k4_against_plain(torch, kernels, out, "tp", (
         TP_B, cfg.num_heads // TP_WORLD, cfg.num_kv_heads // TP_WORLD, TP_S,
         cfg.hd), torch.float32, 3e-5, 1e-4)
+    s2s = _s2s_cfg()
+    for causal in (True, False):
+        k4_against_plain(torch, kernels, out, "tp", (
+            TP_B, s2s.num_heads, s2s.num_kv_heads, S2S_S, s2s.hd),
+            torch.float32, 3e-5, 1e-4, causal)
+    # the decode step's cross attention: one q row per sequence
+    k4_against_plain(torch, kernels, out, "tp", (
+        TP_B, s2s.num_heads, s2s.num_kv_heads, S2S_S, s2s.hd),
+        torch.float32, 3e-5, 1e-4, False, sq=1)
     out["mesh"] = {"seconds": secs, "worst_rel": worst,
+                   "s2s_k4_per_prefill": s2s_k4,
+                   "s2s_k4_per_decode_step": s2s_step,
                    "k4_per_rank_step": per_step, "profiler_k4": prof,
                    "losses": [float(ranks[0][f"loss{i}"])
                               for i in range(TP_STEPS)]}
@@ -3020,8 +3210,135 @@ def _tp_mesh_check(torch, np, kernels, out, smi) -> int:
         f"{worst['logits']:.3g}), greedy tokens equal; K4 per rank per step "
         f"{per_step} (counters), {prof} (profiler), {TP_LAYERS} per prefill; "
         f"{secs:.1f} s with start-up; {smi}")
+    say(f"[tp] the same mesh serves seamless-m4t-medium at full width "
+        f"(d_model {s2s.d_model}, {s2s.num_heads} heads, vocab "
+        f"{s2s.vocab_size}; {S2S_LAYERS} + {S2S_LAYERS} layers, float32), "
+        f"B {TP_B}, source and prompt {S2S_S}, a cache of {S2S_LEN}: "
+        f"{s2s.num_heads} heads do not divide over {TP_WORLD}, so k/v and "
+        f"xk/xv are cut on positions; prefill + {TP_NEW} decode steps: logits within "
+        f"rtol 1e-3 (largest err / max|logit| {worst['s2s']:.3g}), greedy "
+        f"tokens equal; K4 per rank: {s2s_k4} per prefill, {s2s_step} "
+        f"per decode step (cross attention over the gathered encoder "
+        f"positions); {smi}")
     free(torch, out)
     return k4_path
+
+
+def _kv8_mesh_check(torch, np, kernels, out, smi) -> int:
+    """Phase 12d: the (1, 2) model mesh over an int8 KV cache cut on
+    positions, two processes on the card, against one rank. Returns K4's
+    launches in the ranks' prefills."""
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "kv8_two_process"
+    _spawn_ranks("--kv8-rank", KV8_WORLD, work, 300)
+    ranks = [dict(np.load(work / f"rank{r}.npz"))
+             for r in range(KV8_WORLD)]
+    secs = time.perf_counter() - t0
+    want = _kv8_run(make_host_mesh(1, 1))
+    # the largest err / max|x| of each logits leaf; the cache's int8
+    # elements that differ from one rank's (by 1 at most); the scales'
+    # largest relative err at the prefill's positions and err / max at
+    # the decode steps'
+    worst, flips, scale_err, bad = {}, {}, {}, []
+    pre = (slice(None),) * 3 + (slice(0, TP_S),)
+    dec = (slice(None),) * 3 + (slice(TP_S, None),)
+    for r, got in enumerate(ranks):
+        for k, w in want.items():
+            g_ = got[k]
+            if k.startswith("logits"):
+                scale = float(np.abs(w).max()) or 1.0
+                err = float(np.abs(g_ - w).max())
+                worst[k] = max(worst.get(k, 0.0), err / scale)
+                if err > KV8_TOL * scale:
+                    bad.append(f"rank {r} {k}: max abs err {err:.3g} "
+                               f"(max |x| {scale:.3g})")
+            elif k.startswith("tokens") and not np.array_equal(g_, w):
+                bad.append(f"rank {r} {k}: {g_.ravel()} vs one rank's "
+                           f"{w.ravel()}")
+            elif k.startswith("cache/") and w.dtype == np.int8:
+                d = np.abs(g_.astype(np.int32) - w.astype(np.int32))
+                flips[k[6:]] = max(flips.get(k[6:], 0), int((d > 0).sum()))
+                if d.max() > 1:
+                    bad.append(f"rank {r} {k}: int8 elements differ by up "
+                               f"to {d.max()}")
+            elif k.startswith("cache/") and k.endswith("_scale"):
+                rel = float((np.abs(g_[pre] - w[pre]) / w[pre]).max())
+                top = float(np.abs(w[dec]).max()) or 1.0
+                rel_dec = float(np.abs(g_[dec] - w[dec]).max()) / top
+                was = scale_err.get(k[6:], (0.0, 0.0))
+                scale_err[k[6:]] = (max(was[0], rel), max(was[1], rel_dec))
+                if rel > 1e-5 or rel_dec > KV8_TOL:
+                    bad.append(f"rank {r} {k}: relative err {rel:.3g} at "
+                               f"the prefill's positions (rtol 1e-5), "
+                               f"{rel_dec:.3g} of max at the decode's "
+                               f"(limit {KV8_TOL})")
+            elif k.startswith("cache/") and not np.array_equal(g_, w):
+                bad.append(f"rank {r} {k} differs from one rank's")
+    if bad:
+        fail(f"[kv8] {len(bad)} disagreements with one rank:\n  "
+             + "\n  ".join(bad[:24]))
+    if any(list(r_["cut"]) != ["k", "k_scale", "v", "v_scale"]
+           for r_ in ranks):
+        fail(f"[kv8] the ranks cut {list(ranks[0]['cut'])} on positions, "
+             f"want k, k_scale, v and v_scale")
+    # every rank attends all 9 q heads in each layer of the prefill
+    k4 = [int(r_["k4_prefill"]) for r_ in ranks]
+    if any(n != TP_LAYERS for n in k4):
+        fail(f"[kv8] K4 launches per prefill per rank: {k4}, want "
+             f"{TP_LAYERS}")
+    cfg = _kv8_cfg()
+    k4_against_plain(torch, kernels, out, "kv8", (
+        TP_B, cfg.num_heads, cfg.num_kv_heads, TP_S, cfg.hd),
+        torch.float32, 3e-5, 1e-4)
+    if any(r_["k4_decode"].any() for r_ in ranks):
+        fail(f"[kv8] K4 launched in a decode step: "
+             f"{[list(r_['k4_decode']) for r_ in ranks]}")
+    # which part of logits1's difference the cache carries: one rank's
+    # first decode step from the ranks' gathered prefill cache, against
+    # one rank's own (the cache's share) and the ranks' (the decode's)
+    from repro_torch.models import decode_step, init_params
+    cfg = _kv8_cfg()
+    whole = init_params(cfg, torch.Generator("cuda").manual_seed(SEED))
+    cache = {k[len("prefill_cache/"):]: torch.as_tensor(v, device="cuda")
+             for k, v in ranks[0].items() if k.startswith("prefill_cache/")}
+    with torch.no_grad():
+        lg, _ = decode_step(cfg)(whole, cache, torch.as_tensor(
+            ranks[0]["tokens0"], device="cuda"))
+    lg = lg.float().cpu().numpy()
+    top = float(np.abs(want["logits1"]).max())
+    share = {"cache": float(np.abs(lg - want["logits1"]).max()) / top,
+             "decode": float(np.abs(lg - ranks[0]["logits1"]).max()) / top}
+    if share["decode"] > KV8_TOL:
+        fail(f"[kv8] one rank's decode from the ranks' prefill cache is "
+             f"{share['decode']:.3g} of max from the ranks' (limit "
+             f"{KV8_TOL})")
+    del whole, cache
+    out["kv8"] = {"seconds": secs, "worst_rel": worst,
+                  "int8_elements_off_by_1": flips,
+                  "scale_rel_err_prefill_decode": scale_err,
+                  "logits1_share": share,
+                  "k4_per_prefill": k4, "tolerance": KV8_TOL}
+    say(f"[kv8] (1, {KV8_WORLD}) model mesh, {KV8_WORLD} processes on the "
+        f"card over gloo, smollm-135m full width ({TP_LAYERS} of 30 layers, "
+        f"float32, {cfg.num_heads} q heads and {cfg.num_kv_heads} kv heads) "
+        f"with an int8 KV cache of {KV8_LEN} positions cut on positions "
+        f"({cfg.num_kv_heads} kv heads do not divide over {KV8_WORLD}), B "
+        f"{TP_B}, prompts of {TP_S}: "
+        f"prefill + {TP_NEW} decode steps against one rank on the card, "
+        f"largest err / max|logit| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+        + f" (limit {KV8_TOL}), greedy tokens equal; the gathered cache: "
+        f"int8 elements off by 1 {flips}, the scales' largest relative "
+        f"err at the prefill's positions and err / max at the decode's "
+        + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in
+                    sorted(scale_err.items()))
+        + f"; logits1 from the ranks' prefill cache on one rank: "
+        f"{share['cache']:.3g} of max from one rank's own (the cache's "
+        f"share), {share['decode']:.3g} from the ranks' (the decode's); "
+        f"K4 per prefill per rank {k4}; {secs:.1f} s with start-up; {smi}")
+    free(torch, out)
+    return sum(k4)
 
 
 def _dryrun_check(torch, np, kernels, out, smi) -> None:
@@ -3149,6 +3466,94 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def decode_turn(tree: Path, dest: Path) -> None:
+    """One turn of `--decode-turns` (run as `chip_smoke.py --decode-turn
+    TREE DEST`): with the package of the checkout at TREE, `step_timings`
+    of one bf16 4-row decode step of zamba2-1.2B and rwkv6-1.6B through a
+    Server's backend (phases 6 and 7) and of seamless-m4t-medium's
+    `decode_step` after a 4 x 128 prefill (phase 9), into DEST."""
+    sys.path.insert(0, str(tree / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.hw import scaled_paper_machine
+    from repro_torch.kernels import _lib
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    from repro_torch.serve import Server
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _lib.build_all()
+    rng = np.random.default_rng(SEED)
+    res = {"tree": str(tree)}
+    zero = {k: 0 for k in LM_KERNELS}
+    z = get_config("zamba2-1.2b")
+    for tag, cfg, pre, step in (
+            ("zamba2", z, {**zero, "flash_attention": z.num_layers
+                           // z.attn_every}, {**zero, "ssm_scan":
+                                              z.num_layers}),
+            ("rwkv", get_config("rwkv6-1.6b"), zero, zero)):
+        params, _ = load_params(torch, tag, cfg)
+        prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).tolist()
+                   for n in rng.integers(16, 129, size=8)]
+        srv = Server(scaled_paper_machine(64), backend="cuda")
+        srv.register_decode(tag, cfg, period_s=1.0, params=params, slots=4,
+                            prompt_len=128, max_new_tokens=32, max_len=256)
+        res[cfg.name] = step_timings(
+            torch, f"{cfg.name} bf16", "batch-1 prefill of 128 tokens",
+            *backend_steps(srv._nets[tag].cengine.backend, prompts), pre,
+            step)
+        del params, srv
+        free(torch)
+    cfg = get_config("seamless-m4t-medium")
+    params, _ = load_params(torch, "seamless", cfg)
+    src = torch.as_tensor(rng.integers(1, cfg.vocab_size, (4, 128)),
+                          device="cuda")
+    batch = {"tokens": src, "src_tokens": src}
+    _, cache = prefill_step(cfg)(params, batch, init_cache(
+        cfg, 4, 256, enc_len=128, device="cuda"))
+    tok = torch.tensor([[5], [6], [7], [8]], device="cuda")
+    res[cfg.name] = step_timings(
+        torch, f"{cfg.name} bf16", "batch-4 prefill of 4 x 128",
+        lambda: prefill_step(cfg)(params, batch, init_cache(
+            cfg, 4, 256, enc_len=128, device="cuda")),
+        lambda: decode_step(cfg)(params, cache, tok),
+        {**zero, "flash_attention": cfg.enc_layers + 2 * cfg.dec_layers},
+        {**zero, "flash_attention": cfg.dec_layers})
+    dest.write_text(json.dumps(res))
+
+
+def decode_turns(trees: list) -> None:
+    """`--decode-turns TREE ...`: `decode_turn` of each tree in turn, each
+    in a fresh process, with one line per turn and
+    chiprun_out/decode_turns.json."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    turns = []
+    for i, tree in enumerate(Path(t).resolve() for t in trees):
+        dest = out_dir / f"decode_turn{i}.json"
+        r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--decode-turn", str(tree), str(dest)],
+                           text=True, capture_output=True)
+        if r.returncode != 0:
+            fail(f"decode turn {i} ({tree}) failed:\n{r.stdout[-3000:]}\n"
+                 f"{r.stderr[-3000:]}")
+        turns.append(json.loads(dest.read_text()))
+        say(f"[decode turn {i}] {tree.name}: " + "; ".join(
+            f"{name} step median {t['decode_step_ms']:.3f} ms, busy "
+            f"{t['profile']['decode step']['busy_us']:.0f} us, idle "
+            f"{t['profile']['decode step']['idle_share']:.3f}"
+            for name, t in turns[-1].items() if isinstance(t, dict))
+            + f"; {smi}")
+    (out_dir / "decode_turns.json").write_text(json.dumps(
+        {"card": smi, "turns": turns}, indent=1))
 
 
 def main() -> None:
@@ -3784,7 +4189,8 @@ def main() -> None:
     report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts,
                                   "train smollm-135m": {
                                       "flash_attention": train_k4},
-                                  "tensor parallel smollm-135m (1, 3)": {
+                                  "tensor parallel (1, 3) and int8 KV "
+                                  "cache (1, 2)": {
                                       "flash_attention": tp_k4}}
     line = {"kernels": []}
     for k in _lib.KERNELS:
@@ -3817,5 +4223,11 @@ if __name__ == "__main__":
                         Path(sys.argv[4]))
     elif sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    elif sys.argv[1:2] == ["--kv8-rank"]:
+        kv8_rank_main(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    elif sys.argv[1:2] == ["--decode-turn"]:
+        decode_turn(Path(sys.argv[2]), Path(sys.argv[3]))
+    elif sys.argv[1:2] == ["--decode-turns"]:
+        decode_turns(sys.argv[2:])
     else:
         main()

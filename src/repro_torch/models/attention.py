@@ -23,7 +23,8 @@ On a model axis above 1 (`distribution/tensor_parallel.py`) q, k and v
 are this rank's heads when wq/wk/wv are cut on whole heads, else all
 heads (gathered); `local_kv` picks the kv heads of this rank's q heads
 (the GQA group of a q head stays h // (Hq / Hkv) whatever the cut), `wo`
-is row-parallel, and `decode_attend_cut` attends over a cache whose
+is row-parallel, and `decode_attend_cut` and `decode_attend_int8_cut`
+attend whole q heads over a cache (float, or int8 with its scales) whose
 positions are cut over ranks (`cache_shardings` cuts them when the kv
 heads do not divide over `model`).
 """
@@ -116,11 +117,12 @@ def quantize_kv(k):
     return q.to(torch.int8), scale
 
 
-def _decode_mask(pos, Smax: int, window, device):
+def _decode_mask(pos, Smax: int, window, device, start=0):
     """(B or 1, 1, 1, Smax) bool: kv position j is visible to a row whose
-    current token sits at `pos` iff j <= pos (and j > pos - window)."""
+    current token sits at `pos` iff j <= pos (and j > pos - window). The
+    slab holds positions [start, start + Smax)."""
     p = torch.as_tensor(pos, device=device).reshape(-1, 1, 1, 1)
-    kpos = torch.arange(Smax, device=device)[None, None, None, :]
+    kpos = start + torch.arange(Smax, device=device)[None, None, None, :]
     mask = kpos <= p
     if window is not None:
         mask = mask & (kpos > p - window)
@@ -169,6 +171,16 @@ def decode_attend(q, cache_k, cache_v, pos, *, window=None):
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 
+def _cut_softmax(s, seq: Axis, mask):
+    """The masked softmax of logits `s` (..., S_loc) over all the
+    positions of a cut: its maximum and its sum are reduced over `seq`,
+    so each rank holds its positions' part of the whole softmax."""
+    s = torch.where(mask, s, torch.full_like(s, _NEG))
+    m = seq.all_reduce(s.amax(dim=-1, keepdim=True), "max")
+    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    return e / seq.all_reduce(e.sum(dim=-1, keepdim=True))
+
+
 def decode_attend_cut(q, cache_k, cache_v, pos, seq: Axis, *, window=None):
     """`decode_attend` of whole q heads against this rank's positions of a
     cache cut over `seq` (the rank holds positions [i * S_loc, (i + 1) *
@@ -180,18 +192,32 @@ def decode_attend_cut(q, cache_k, cache_v, pos, seq: Axis, *, window=None):
     scale = 1.0 / (D ** 0.5)
     qh = (q.reshape(B, Hkv, g, D) * scale).to(cache_k.dtype).float()
     s = torch.matmul(qh, cache_k.float().transpose(-1, -2))  # (B,Hkv,g,S)
-    p_ = torch.as_tensor(pos, device=q.device).reshape(-1, 1, 1, 1)
-    kpos = (seq.index * S_loc
-            + torch.arange(S_loc, device=q.device))[None, None, None, :]
-    mask = kpos <= p_
-    if window is not None:
-        mask = mask & (kpos > p_ - window)
-    s = torch.where(mask, s, torch.full_like(s, _NEG))
-    m = seq.all_reduce(s.amax(dim=-1, keepdim=True), "max")
-    e = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    l = seq.all_reduce(e.sum(dim=-1, keepdim=True))
-    out = seq.all_reduce(torch.matmul((e / l).to(cache_v.dtype).float(),
+    mask = _decode_mask(pos, S_loc, window, q.device, seq.index * S_loc)
+    p = _cut_softmax(s, seq, mask)
+    out = seq.all_reduce(torch.matmul(p.to(cache_v.dtype).float(),
                                       cache_v.float()))
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def decode_attend_int8_cut(q, k_q, k_s, v_q, v_s, pos, seq: Axis, *,
+                           window=None):
+    """`decode_attend_int8` of whole q heads against this rank's positions
+    of an int8 cache (and its scales) cut over `seq`: the logits scaled by
+    k_s, the softmax reduced over the cut, then p scaled by v_s and
+    rounded to bf16, and the products summed over the ranks. q and p are
+    rounded where `decode_attend_int8` rounds them, so one rank and the
+    cut differ only by the order of the softmax's sum."""
+    B, Hq, _, D = q.shape
+    _, Hkv, S_loc, _ = k_q.shape
+    g = Hq // Hkv
+    scale = 1.0 / (D ** 0.5)
+    qh = (q.reshape(B, Hkv, g, D) * scale).to(torch.bfloat16).float()
+    s = torch.matmul(qh, k_q.float().transpose(-1, -2))      # (B,Hkv,g,S)
+    s = s * k_s[:, :, None, :]
+    mask = _decode_mask(pos, S_loc, window, q.device, seq.index * S_loc)
+    p = _cut_softmax(s, seq, mask)
+    p = (p * v_s[:, :, None, :]).to(torch.bfloat16).float()
+    out = seq.all_reduce(torch.matmul(p, v_q.float()))
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 

@@ -29,7 +29,9 @@ runs on its slices of the params and of the cache as `param_shardings`
 and `cache_shardings` cut them; a cache whose positions are cut over
 ranks (kv heads that do not divide over `model`) is written by the rank
 that holds the position and attended with the softmax reduced over the
-cut.
+cut (the float cache, the int8 cache with its scales); encdec's
+cross-attention keys and values cut on positions are gathered whole for
+K4, as GSPMD gathers a kernel's operands.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from __future__ import annotations
 import torch
 
 from .attention import (attn_out, attend, decode_attend, decode_attend_cut,
-                        decode_attend_int8, local_kv, qkv_proj, quantize_kv)
+                        decode_attend_int8, decode_attend_int8_cut, local_kv,
+                        qkv_proj, quantize_kv)
 from ..distribution.tensor_parallel import (cache_seq_axis, col_whole,
                                             materialize, model_axis)
 from .config import ModelConfig
@@ -283,10 +286,32 @@ def _write_rows(slab, fresh, idx, seq=None):
     slab[rows, :, j] = torch.where(mine, fresh.to(slab.dtype), keep)
 
 
+def _heads(q, seq, cfg: ModelConfig, *pairs):
+    """The q heads and (k, v)-like pairs of cache slabs that this rank
+    attends: over a cache whose positions are cut over `seq`, all q heads
+    (gathered when cut) against its own slabs; else its q heads against
+    their kv heads of each pair (`local_kv`)."""
+    if seq.n > 1:
+        if q.shape[1] != cfg.num_heads:
+            q = model_axis().gather(q, 1)
+        return q, [x for pair in pairs for x in pair]
+    return q, [x for pair in pairs for x in local_kv(q, *pair, cfg)]
+
+
 def decode_step(cfg: ModelConfig):
     """(params, cache, tokens (B,1)) -> (logits (B,1,V) f32, cache).
 
     Each row's new token sits at cache["pos"] + 1 (scalar or per row).
+
+    On a mesh it serves every layout that `cache_shardings` gives the
+    caches: float and int8 KV caches (with their scales) cut on heads
+    (each rank attends its q heads' kv heads; `local_kv` takes a part of
+    a GQA group), cut on positions over `model` or over data and `model`
+    (every rank attends all q heads against its positions, the softmax
+    reduced over the cut), or whole; encdec's `xk`/`xv` cut on heads,
+    or on positions (gathered whole for K4's cross attention), or whole;
+    rows cut over data; and the state caches (WKV, SSM, conv) cut on
+    heads or channels or whole.
     """
     check_family(cfg)
     _, norm = make_norm(cfg.norm)
@@ -301,30 +326,35 @@ def decode_step(cfg: ModelConfig):
         seq = cache_seq_axis("k")
         _write_rows(k_l, k[:, :, 0], idx, seq)
         _write_rows(v_l, v[:, :, 0], idx, seq)
+        q, (k_a, v_a) = _heads(q, seq, cfg, (k_l, v_l))
         if seq.n > 1:
-            if q.shape[1] != cfg.num_heads:
-                q = model_axis().gather(q, 1)
-            o = decode_attend_cut(q, k_l, v_l, pos, seq, window=window)
+            o = decode_attend_cut(q, k_a, v_a, pos, seq, window=window)
         else:
-            o = decode_attend(q, *local_kv(q, k_l, v_l, cfg), pos,
-                              window=window)
+            o = decode_attend(q, k_a, v_a, pos, window=window)
         return h + attn_out(pl_["attn"], o, cfg)
 
     def _attn_step_int8(pl_, h, k_l, ks_l, v_l, vs_l, pos, idx, window):
+        """`_attn_step` over an int8 cache and its scales: the new row is
+        quantized once and written, with its scales, by the rank that
+        holds its position; a cut cache is attended with
+        `decode_attend_int8_cut`."""
         z = norm(pl_["ln1"], h, cfg.norm_eps)
         q, k, v = qkv_proj(pl_["attn"], z, cfg, pos.reshape(-1, 1, 1))
-        if cache_seq_axis("k").n > 1 or \
-                q.shape[1] * cfg.num_kv_heads != k_l.shape[1] * cfg.num_heads:
-            raise NotImplementedError(
-                "an int8 KV cache is served with whole GQA groups on each "
-                "rank only, not on positions cut over ranks")
+        seq = cache_seq_axis("k")
         kq, ksc = quantize_kv(k)
         vq, vsc = quantize_kv(v)
-        _write_rows(k_l, kq[:, :, 0], idx)
-        _write_rows(v_l, vq[:, :, 0], idx)
-        _write_rows(ks_l, ksc[:, :, 0], idx)
-        _write_rows(vs_l, vsc[:, :, 0], idx)
-        o = decode_attend_int8(q, k_l, ks_l, v_l, vs_l, pos, window=window)
+        _write_rows(k_l, kq[:, :, 0], idx, seq)
+        _write_rows(v_l, vq[:, :, 0], idx, seq)
+        _write_rows(ks_l, ksc[:, :, 0], idx, seq)
+        _write_rows(vs_l, vsc[:, :, 0], idx, seq)
+        q, (k_a, v_a, ks_a, vs_a) = _heads(q, seq, cfg, (k_l, v_l),
+                                           (ks_l, vs_l))
+        if seq.n > 1:
+            o = decode_attend_int8_cut(q, k_a, ks_a, v_a, vs_a, pos, seq,
+                                       window=window)
+        else:
+            o = decode_attend_int8(q, k_a, ks_a, v_a, vs_a, pos,
+                                   window=window)
         return h + attn_out(pl_["attn"], o, cfg)
 
     def fn(params, cache, tokens):
@@ -364,19 +394,17 @@ def decode_step(cfg: ModelConfig):
 
         if cfg.family == "encdec":
             k_new, v_new = cache["k"].clone(), cache["v"].clone()
+            xseq = cache_seq_axis("xk")
             for i in range(cfg.dec_layers):
                 pl_ = layer_of(params, "dec_layers", i)
                 x = _attn_step(pl_, x, k_new[i], v_new[i], pos, idx, None)
                 z = norm(pl_["lnx"], x, cfg.norm_eps)
                 qx, _, _ = qkv_proj(pl_["xattn"], z, cfg,
                                     pos.reshape(-1, 1, 1))
-                if cache_seq_axis("xk").n > 1:
-                    raise NotImplementedError(
-                        "cross attention over encoder positions cut over "
-                        "ranks (kv heads that do not divide over `model`)")
-                ox = attend(qx, *local_kv(qx, cache["xk"][i],
-                                          cache["xv"][i], cfg),
-                            causal=False)
+                # encoder positions cut over ranks are gathered whole
+                xk = xseq.all_gather(cache["xk"][i], 2)
+                xv = xseq.all_gather(cache["xv"][i], 2)
+                ox = attend(qx, *local_kv(qx, xk, xv, cfg), causal=False)
                 x = x + attn_out(pl_["xattn"], ox, cfg)
                 z = norm(pl_["ln2"], x, cfg.norm_eps)
                 x = x + mlp_apply(pl_["mlp"], z, cfg.act, cfg.d_ff)

@@ -10,8 +10,31 @@ zamba2-1.2b; encdec seamless-m4t-medium, also with cfg.fsdp under full
 remat, its layers gathered one at a time; all reduced, float32) a ZeRO-1
 train step (params and moments after the step, gathered whole) and a
 prefill plus 2 greedy decode steps (logits and the cache, gathered whole).
-Each rank's result is held to the one-rank run computed here within rtol
-1e-4 and an atol of 1e-5 x the leaf's largest magnitude. The step's AdamW
+The cut caches and the paths only the dry run counted have cases too:
+
+  * `smollm-135m+int8kv`: the int8 KV cache and its scales cut on
+    positions (1 kv head over 2 ranks);
+  * `smollm-135m+int8kv+gqa`: 6 q heads in groups of 2 over 3 kv heads,
+    a cache of 15 positions that stays whole, each rank holding one and a
+    half groups of q heads;
+  * `seamless-m4t-medium+3heads`: d_model 96 in 3 heads, so the
+    cross-attention keys and values are cut on the 12 encoder positions;
+  * `mixtral-8x22b+sorted` and `arctic-480b` (its dense residual MLP):
+    the sorted dispatch under cfg.fsdp, vocab 8192;
+  * qwen1.5-110b (QKV bias), pixtral-12b with and without the vision
+    stub's `frontend_embeds`, internlm2-20b and minicpm-2b.
+
+The 4-rank world also runs smollm and `smollm-135m+int8kv` on a (pod 2,
+data 1, model 2) mesh. Each rank's result is held to the one-rank run
+computed here within rtol 1e-4 and an atol of 1e-5 x the leaf's largest
+magnitude; in the int8 cases what the int8 decode computes (the decode
+steps' logits and the cache's float leaves) is held within the int8
+twin's rtol 1e-2 and atol 4e-3 x max (test_torch_models.py), since that
+decode rounds q and p to bf16 and a last-bit difference in the softmax's
+sum, whose order the cut changes, can move one bf16 rounding; their int8
+leaves may differ by 1 where a scaled value lands within rounding of a
+.5, and the train step and the prefill's logits keep the float limit.
+Every case's greedy tokens equal the one rank's. The step's AdamW
 takes eps 1e-3: its first step maps a gradient g to about g / (|g| +
 eps), so at the default 1e-8 a gradient that is 0 in exact arithmetic
 (a key bias's, by the softmax's shift invariance) or a few 1e-9 (rows of
@@ -49,15 +72,23 @@ from repro_torch.tree import flatten_with_path, leaves, path_str, tree_map
 ROOT = Path(__file__).resolve().parent.parent
 DEADLINE_S = 240
 ARCHS = ("smollm-135m", "mixtral-8x22b", "rwkv6-1.6b", "zamba2-1.2b",
-         "seamless-m4t-medium", "seamless-m4t-medium+fsdp")
+         "seamless-m4t-medium", "seamless-m4t-medium+fsdp",
+         "smollm-135m+int8kv", "smollm-135m+int8kv+gqa",
+         "seamless-m4t-medium+3heads", "mixtral-8x22b+sorted",
+         "arctic-480b", "qwen1.5-110b", "pixtral-12b",
+         "pixtral-12b+frontend", "internlm2-20b", "minicpm-2b")
+# the cases run on the (1, 2, 2) pod mesh of the 4-rank world as well
+POD_ARCHS = ("smollm-135m", "smollm-135m+int8kv")
 B, S_TRAIN, S_PRE, MAX_LEN = 4, 16, 12, 16
 OPT = OptConfig(total_steps=10, warmup_steps=1, eps=1e-3)
 
 
 def _cfg(arch):
     cfg = get_config(arch.split("+")[0], reduced=True)
-    if arch == "mixtral-8x22b":
+    if arch in ("mixtral-8x22b", "mixtral-8x22b+sorted", "arctic-480b"):
         cfg = dataclasses.replace(cfg, fsdp=True, vocab_size=8192)
+    if arch in ("mixtral-8x22b+sorted", "arctic-480b"):
+        cfg = dataclasses.replace(cfg, moe_dispatch="sorted")
     if arch == "seamless-m4t-medium+fsdp":
         # ZeRO-3 gathered per layer under full remat: d_ff 4096 takes the
         # MLPs past the 2**20-element floor; over 2 data ranks the 2
@@ -65,10 +96,26 @@ def _cfg(arch):
         # on d_model
         cfg = dataclasses.replace(cfg, fsdp=True, d_ff=4096, dec_layers=3,
                                   remat="full")
+    if arch == "seamless-m4t-medium+3heads":
+        # 3 heads do not divide over 2: xk/xv (and k/v) cut on positions
+        cfg = dataclasses.replace(cfg, d_model=96, num_heads=3,
+                                  num_kv_heads=3)
+    if "+int8kv" in arch:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    if arch.endswith("+gqa"):
+        # 6 q heads in groups of 2 over 3 kv heads: each of 2 model ranks
+        # holds 3 q heads, one and a half groups
+        cfg = dataclasses.replace(cfg, num_heads=6, num_kv_heads=3)
     return cfg
 
 
-def _batch(cfg, S, train):
+def _max_len(arch):
+    # positions that do not divide over 2 leave the cache whole: the
+    # "+gqa" case then reads part of a GQA group over a whole cache
+    return 15 if arch.endswith("+gqa") else MAX_LEN
+
+
+def _batch(cfg, S, train, frontend=False):
     rng = np.random.default_rng(1)
     t = lambda: torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)))
     batch = {"tokens": t()}
@@ -76,6 +123,10 @@ def _batch(cfg, S, train):
         batch["labels"] = t()
     if cfg.family == "encdec":
         batch["src_tokens"] = t()
+    if frontend:
+        # the vision stub's embeddings in place of the first tokens'
+        batch["frontend_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
     return batch
 
 
@@ -85,15 +136,17 @@ def _np(tree, prefix):
 
 
 def run_case(arch, mesh):
-    """One family's train step and serving steps on `mesh` (this rank's
-    slices), every result gathered whole: {name: array}."""
+    """One case's train step and serving steps on `mesh` (this rank's
+    slices), every result gathered whole: {name: array} (int8 cache
+    leaves kept int8)."""
     cfg = _cfg(arch)
+    frontend = arch.endswith("+frontend")
     whole = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     out = {}
     params, opt, (ps, os_) = build_state(cfg, mesh, params=whole,
                                          device="cpu")
     step = sharded_train_step(cfg, mesh, OPT, ps, os_)
-    batch = _batch(cfg, S_TRAIN, True)
+    batch = _batch(cfg, S_TRAIN, True, frontend)
     bs = batch_shardings(cfg, mesh, batch)
     params, opt, m = step(params, opt,
                           {k: bs[k].shard(v) for k, v in batch.items()})
@@ -102,9 +155,9 @@ def run_case(arch, mesh):
     out.update(_np(tree_map(lambda s, x: s.gather(x), os_["mu"],
                             opt["mu"]), "mu"))
 
-    batch = _batch(cfg, S_PRE, False)
+    batch = _batch(cfg, S_PRE, False, frontend)
     bs = batch_shardings(cfg, mesh, batch)
-    cache = init_cache(cfg, B, MAX_LEN, enc_len=S_PRE, device="cpu")
+    cache = init_cache(cfg, B, _max_len(arch), enc_len=S_PRE, device="cpu")
     cs = cache_shardings(cfg, mesh, cache)
     rows = bs["tokens"]
     p_loc = tree_map(lambda s, x: s.shard(x), ps, whole)
@@ -118,8 +171,9 @@ def run_case(arch, mesh):
             tok = torch.argmax(logits[:, -1], -1, keepdim=True)
             logits, c_loc = decode_step(cfg)(p_loc, c_loc, tok)
     out["logits2"] = lg.gather(logits).numpy()
-    out.update({f"cache/{k}": cs[k].gather(v).float().numpy()
-                for k, v in c_loc.items()})
+    for k, v in c_loc.items():
+        v = cs[k].gather(v)
+        out[f"cache/{k}"] = (v if v.dtype == torch.int8 else v.float()).numpy()
     return out
 
 
@@ -199,6 +253,10 @@ np.savez(f"{d}/remat.rank{rank}.npz", err=np.array(T.remat_case(mesh)))
 np.savez(f"{d}/relayout.rank{rank}.npz", ok=np.array(T.relayout_case(mesh)))
 if data == 1:
     T.checkpoint_case(mesh, d)
+else:
+    pod = make_host_mesh(data=1, model=2, pod=world // 2)
+    for arch in T.POD_ARCHS:
+        np.savez(f"{d}/pod.{arch}.rank{rank}.npz", **T.run_case(arch, pod))
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -265,26 +323,49 @@ def one_rank():
     return {arch: _one_rank(arch) for arch in ARCHS}
 
 
-def _close(got, want, name):
-    np.testing.assert_allclose(got, want, rtol=1e-4,
-                               atol=1e-5 * float(np.abs(want).max() or 1.0),
+def _close(got, want, key, arch, name):
+    if want.dtype == np.int8:
+        # int8 caches quantize floats that agree to float32 rounding:
+        # equal but for values whose scaled float lands within rounding
+        # of a .5
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)
+                      ).max() <= 1, name
+        return
+    # the int8 decode's limit for what it computes (it rounds q and p to
+    # bf16); the float limit for the train step and the prefill
+    int8_decode = "+int8kv" in arch and key.startswith(
+        ("logits1", "logits2", "cache/"))
+    rtol, atol = (1e-2, 4e-3) if int8_decode else (1e-4, 1e-5)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=atol * float(np.abs(want).max() or 1.0),
                                err_msg=name)
+
+
+def _check_ranks(d, world, arch, want, prefix=""):
+    for r in range(world):
+        got = dict(np.load(d / f"{prefix}{arch}.rank{r}.npz"))
+        assert set(got) == set(want)
+        for k in want:
+            _close(got[k], want[k], k, arch, f"rank {r} {k}")
+        # the greedy tokens are the one rank's
+        for i in range(3):
+            assert np.array_equal(got[f"logits{i}"].argmax(-1),
+                                  want[f"logits{i}"].argmax(-1))
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_sharded_steps_match_one_rank(arch, mesh, worlds, one_rank):
     d, world = worlds[mesh]
-    want = one_rank[arch]
-    for r in range(world):
-        got = dict(np.load(d / f"{arch}.rank{r}.npz"))
-        assert set(got) == set(want)
-        for k in want:
-            _close(got[k], want[k], f"rank {r} {k}")
-        # the greedy tokens are the one rank's
-        for i in range(3):
-            assert np.array_equal(got[f"logits{i}"].argmax(-1),
-                                  want[f"logits{i}"].argmax(-1))
+    _check_ranks(d, world, arch, one_rank[arch])
+
+
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_pod_mesh_matches_one_rank(arch, worlds, one_rank):
+    """The (pod 2, data 1, model 2) mesh of the 4-rank world: rows cut
+    over pod x data, the caches' positions over `model`."""
+    d, world = worlds["2x2"]
+    _check_ranks(d, world, arch, one_rank[arch], "pod.")
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])
