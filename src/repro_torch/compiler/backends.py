@@ -56,6 +56,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import trace
 from ..core import compiled as _C
 from ..core import megakernel as _MK
 
@@ -305,10 +306,16 @@ def _numpy_single(prog: _C.CompiledProgram,
 def _numpy_io(fn, prog: _C.CompiledProgram, device, batched: bool) -> Runner:
     """numpy in/out around a batched torch program on `device` (a single
     sample gets a leading batch axis of 1). Blocks until the result is on
-    the host."""
+    the host. Its three phases are the spans `runner.upload`,
+    `runner.issue` (the program returns before the device finishes) and
+    `runner.readback` (`repro_torch.trace`)."""
     def run(inputs: dict) -> dict:
-        out = fn(_C.to_device(prog, inputs, device, batched))
-        return _C.to_numpy(out, batched)
+        with trace.span("runner.upload"):
+            x = _C.to_device(prog, inputs, device, batched)
+        with trace.span("runner.issue"):
+            out = fn(x)
+        with trace.span("runner.readback"):
+            return _C.to_numpy(out, batched)
     return run
 
 

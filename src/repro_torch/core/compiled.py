@@ -50,6 +50,7 @@ from .partition import Partitioner, Subtask
 from .schedule import StaticSchedule, compute_schedule
 from .executor import (_NP_DT, _avgpool, _maxpool, _requant_np, _sat_add,
                        im2col)
+from .. import trace
 from ..hw import HardwareModel, derive_conv_blocks, derive_gemm_blocks
 from ..kernels import ref as kref
 from ..kernels.conv2d_im2col import conv2d_int8
@@ -579,6 +580,8 @@ def run_torch(prog: CompiledProgram, inputs: dict[str, np.ndarray],
 # Op kinds with a kernel lowering; everything else runs as plain torch
 # between launches.
 KERNEL_KINDS = frozenset({"gemm", "conv2d"})
+# the wrapper (and launch counter) each kernel mode runs on
+KERNEL_OF = {"gemm": "gemm_int8", "conv2d": "conv2d_int8"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -686,10 +689,12 @@ def kernel_batched(prog: CompiledProgram, device="cuda"):
                 if step.mode == "skip":
                     continue             # fused into the previous kernel
                 if step.mode == "torch":
+                    trace.plain_step()
                     b = step.batch
                     vals[b.out_idx] = _torch_op(b, vals, prog, consts)
                 else:
-                    run_kernel_step(prog, step, vals, consts)
+                    with trace.kernel(KERNEL_OF[step.mode]):
+                        run_kernel_step(prog, step, vals, consts)
 
         fn = prog._device_cache[key] = _program_fn(prog, body)
     return fn

@@ -46,6 +46,7 @@ import torch
 
 from . import compiled as C
 from .graph import conv_out_hw
+from .. import trace
 from ..kernels import _lib
 from ..kernels.conv2d_im2col import (TILE_M, TILE_N, conv_splits,
                                      split_workspace)
@@ -514,10 +515,14 @@ def megakernel_batched(prog: C.CompiledProgram, device="cuda", *,
         def body(vals):
             for si, seg in enumerate(segments):
                 if seg.kind == "fused":
-                    run_fused(prog, seg, vals, consts, tables.get(si))
+                    with trace.kernel("megakernel"):
+                        run_fused(prog, seg, vals, consts, tables.get(si))
                 elif seg.kind == "tiled":
-                    C.run_kernel_step(prog, seg.steps[0], vals, consts)
+                    step = seg.steps[0]
+                    with trace.kernel(C.KERNEL_OF[step.mode]):
+                        C.run_kernel_step(prog, step, vals, consts)
                 else:                # "outside": plain torch, no launch
+                    trace.plain_step()
                     b = seg.steps[0].batch
                     vals[b.out_idx] = C._torch_op(b, vals, prog, consts)
 

@@ -79,6 +79,7 @@ from typing import Callable
 
 import numpy as np
 
+from .. import trace
 from ..core.compiled import resolve_device
 from ..core.graph import Graph
 from ..core.taskset import Job, NetworkSpec
@@ -149,6 +150,9 @@ class Ticket:
     status: str = "queued"
     error: str | None = None
     _result: TicketResult | None = dataclasses.field(default=None, repr=False)
+    # perf_counter_ns at submission, stamped while `repro_torch.trace` is on
+    submit_ns: int | None = dataclasses.field(default=None, repr=False,
+                                              compare=False)
 
     @property
     def done(self) -> bool:
@@ -638,7 +642,7 @@ class Server:
                 f"admission (or is analysis-only) — register it through "
                 f"Server.register, pass step_fn=, or call attach()")
         t = Ticket(tid=next(self._tids), network=name, payload=payload,
-                   deadline_s=deadline_s)
+                   deadline_s=deadline_s, submit_ns=trace.stamp())
         if st.shed or (st.breaker is not None
                        and st.breaker.state == "open"):
             self._resolve_terminal(t, "degraded")
@@ -694,19 +698,20 @@ class Server:
         housekeeping runs: a staged mode switch applies and the overload
         control loop sheds/restores — both are forbidden mid-hyperperiod
         because they change the schedule the in-flight bounds assume."""
-        if self.report is None:
-            self.analyze()
-        if self._cursor == 0:
-            self._boundary()
-        jobs = self.compiled.jobs
-        job = jobs[self._cursor]
-        release_abs = (self.clock_base_s + self.hyperperiods_completed
-                       * self.compiled.hyperperiod_s + job.release)
-        self._execute_job(job, release_abs)
-        self._cursor += 1
-        if self._cursor >= len(jobs):
-            self._cursor = 0
-            self.hyperperiods_completed += 1
+        with trace.span("serve.step"):
+            if self.report is None:
+                self.analyze()
+            if self._cursor == 0:
+                self._boundary()
+            jobs = self.compiled.jobs
+            job = jobs[self._cursor]
+            release_abs = (self.clock_base_s + self.hyperperiods_completed
+                           * self.compiled.hyperperiod_s + job.release)
+            self._execute_job(job, release_abs)
+            self._cursor += 1
+            if self._cursor >= len(jobs):
+                self._cursor = 0
+                self.hyperperiods_completed += 1
         return job
 
     def _boundary(self) -> None:
@@ -727,9 +732,14 @@ class Server:
                 * self.compiled.hyperperiod_s)
 
     def _execute_job(self, job: Job, release_abs: float) -> None:
+        self.metrics["jobs"] += 1
+        with trace.span("serve.job", job=self.metrics["jobs"],
+                        net=job.network):
+            self._run_job(job, release_abs)
+
+    def _run_job(self, job: Job, release_abs: float) -> None:
         st = self._nets[job.network]
         bound = self.report.bound(job.network)
-        self.metrics["jobs"] += 1
         if st.breaker is not None and not st.autorun:
             action = st.breaker.on_release()
             if action == "skip":
@@ -752,7 +762,8 @@ class Server:
             self.monitor.check(job.network, dt, bound)
         elif st.runner is not None and len(st.queue) > 0:
             tickets = st.queue.pop_upto(st.slots)
-            with self._failing(tickets):
+            trace.queued(tickets)
+            with self._failing(tickets), trace.span("serve.stack"):
                 # malformed payloads are caller errors, not executor
                 # faults: they fail the tickets and raise without
                 # consuming the retry budget
@@ -761,14 +772,16 @@ class Server:
                                        lambda: st.runner(batch))
             if out is _GIVE_UP:
                 return
-            self.monitor.check(job.network, dt, bound)
-            for i, t in enumerate(tickets):
-                self._finish(t, {k: v[i] for k, v in out.items()},
-                             dt, bound, release_abs)
+            with trace.span("serve.finish"):
+                self.monitor.check(job.network, dt, bound)
+                for i, t in enumerate(tickets):
+                    self._finish(t, {k: v[i] for k, v in out.items()},
+                                 dt, bound, release_abs)
         elif st.cengine is not None:
             self._step_continuous(st, release_abs, bound)
         elif st.step_fn is not None and len(st.queue) > 0:
             tickets = st.queue.pop_upto(1)
+            trace.queued(tickets)
             (t,) = tickets
             out, dt = self._serve_call(st, tickets,
                                        lambda: st.step_fn(t.payload))

@@ -1,0 +1,242 @@
+"""The serving path's span recorder: one per process, off by default.
+
+    from repro_torch import trace
+    trace.reset()
+    trace.enable()
+    ...                       # serve: Server.submit / Server.step
+    trace.disable()
+    for r in trace.records():
+        print(r.name, r.end_ns - r.start_ns, r.parent, r.job, r.ticket)
+
+Off, `span(...)` and `kernel(...)` return one shared no-op context
+manager: a flag check, nothing allocated or recorded. On, each span appends
+a `Record` on `time.perf_counter_ns()` to a list in memory; nothing is
+written out, and the records stay until `reset()`. While torch's profiler
+runs, each span also opens a `torch.profiler.record_function` range of the
+same name, so the device trace holds the program's spans on the
+profiler's own clock, beside the kernels.
+
+The spans of a CNN job (`serve.*` in `serve/runtime.py::Server`, `runner.*`
+in `compiler/backends.py::_numpy_io`):
+
+    serve.step            the whole of `Server.step`
+      serve.job           `_execute_job` for one job (job id, network)
+        serve.stack       batch assembly and padding (`Server._stack`)
+        runner.upload     the batch to the device (`to_device`)
+        runner.issue      the program's body: issues the launches and the
+                          plain steps, returns before the device finishes
+        runner.readback   `to_numpy`: the host waiting for the device, and
+                          the copy of the output
+        serve.finish      the deadline check and each ticket's result
+    serve.queue           one per ticket: from `Server.submit` to the start
+                          of the `serve.job` that served it
+
+Counters, summed on the open `serve.job` record: `launches` and `launch_ns`
+(the kernel launches of the K1-K3 wrapper calls in the program's body and
+the host time of those calls; `kernel(name)` times them and, under the
+profiler, names them `kernel.<name>`), and `plain_steps` (the plain torch
+steps run between launches). `plain_steps()` is the plain-step total since
+`reset()`; it is apart from `kernels.launch_counts()`.
+
+One serving thread: the open spans are one stack for the process."""
+
+from __future__ import annotations
+
+from time import perf_counter_ns
+
+import torch
+
+from .kernels import _lib
+
+NAMES = ("serve.step", "serve.job", "serve.stack", "runner.upload",
+         "runner.issue", "runner.readback", "serve.finish", "serve.queue")
+KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
+KERNEL_NAMES = tuple(f"kernel.{k}" for k in KERNELS)
+
+ON = False
+_records: list = []
+_open: list = []          # indices into _records of the open spans
+_job = None               # the open serve.job record
+_plain = 0
+
+
+FIELDS = ("name", "start_ns", "end_ns", "parent", "job", "ticket", "net",
+          "launches", "launch_ns", "plain_steps")
+
+
+class Record:
+    """One span: `name`, `start_ns` and `end_ns` on `perf_counter_ns`, the
+    index of its `parent` in `records()` (None at the top), and the `job`
+    and `ticket` ids it belongs to (None where it has none). A `serve.job`
+    also carries its network (`net`) and counters: `launches`,
+    `launch_ns`, `plain_steps`. Entered (`span`), it is the open span."""
+
+    __slots__ = FIELDS + ("_rf",)
+
+    def __init__(self, name, start_ns=0, end_ns=None, job=None, ticket=None,
+                 net=None):
+        self.name, self.start_ns, self.end_ns = name, start_ns, end_ns
+        self.parent, self.job, self.ticket, self.net = None, job, ticket, net
+        self.launches = self.launch_ns = self.plain_steps = 0
+        self._rf = None
+
+    def asdict(self) -> dict:
+        return {k: getattr(self, k) for k in FIELDS}
+
+    def __enter__(self):
+        global _job
+        self._rf = _range(self.name)
+        if _open:
+            self.parent = _open[-1]
+            if self.job is None:
+                self.job = _records[self.parent].job
+        if self.name == "serve.job":
+            for i in _open:               # the serve.step around it
+                if _records[i].job is None:
+                    _records[i].job = self.job
+            _job = self
+        _open.append(len(_records))
+        _records.append(self)
+        self.start_ns = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _job
+        self.end_ns = perf_counter_ns()
+        if _open:                         # a reset() inside drops it
+            _open.pop()
+        if _job is self:
+            _job = None
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+
+class _Noop:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NOOP = _Noop()
+
+
+def enable() -> None:
+    global ON
+    ON = True
+
+
+def disable() -> None:
+    global ON
+    ON = False
+
+
+def reset() -> None:
+    """Drop every record and zero the counters."""
+    global _job, _plain
+    _records.clear()
+    _open.clear()
+    _job, _plain = None, 0
+
+
+def records() -> list[Record]:
+    """The records since `reset()`, in the order their spans opened."""
+    return list(_records)
+
+
+def plain_steps() -> int:
+    """Plain torch steps the programs ran since `reset()`, while on."""
+    return _plain
+
+
+_profiling = torch.autograd._profiler_enabled
+
+
+def _range(name: str):
+    """The profiler's range of `name`, entered, or None when no profiler
+    runs."""
+    if not _profiling():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def span(name: str, *, job: int | None = None, ticket: int | None = None,
+         net: str | None = None):
+    """`with span(name):` records one span while on; `job`, `ticket` and
+    `net` label it (a span without a job id takes its parent's). Inside
+    `span("serve.job", ...)` the counters of `kernel` and `plain_step` add
+    to that job's record."""
+    if not ON:
+        return NOOP
+    return Record(name, job=job, ticket=ticket, net=net)
+
+
+class _Kernel:
+    """One per kernel, reused: a wrapper call does not nest in another."""
+
+    __slots__ = ("kernel", "name", "rf", "n0", "t0")
+
+    def __init__(self, kernel: str):
+        self.kernel, self.name = kernel, "kernel." + kernel
+
+    def __enter__(self):
+        self.rf = _range(self.name)
+        self.n0 = _COUNTS[self.kernel]
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = perf_counter_ns() - self.t0
+        n = _COUNTS[self.kernel] - self.n0
+        if _job is not None and n:
+            _job.launches += n
+            _job.launch_ns += dt
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def kernel(name: str):
+    """`with kernel("conv2d_int8"):` around one kernel wrapper's call: its
+    launches and their host time go to the open `serve.job` (a call that
+    took the plain version launched nothing and adds nothing); under the
+    profiler the call is the range `kernel.<name>`."""
+    if not ON:
+        return NOOP
+    return _KERNEL[name]
+
+
+_COUNTS = _lib._COUNTS         # the launch counters, read in place
+_KERNEL = {k: _Kernel(k) for k in KERNELS}
+
+
+def plain_step() -> None:
+    """Count one plain torch step of a program's body."""
+    global _plain
+    if ON:
+        _plain += 1
+        if _job is not None:
+            _job.plain_steps += 1
+
+
+def stamp() -> int | None:
+    """The time of a submission while on (None while off)."""
+    return perf_counter_ns() if ON else None
+
+
+def queued(tickets) -> None:
+    """One `serve.queue` record per ticket stamped at its submission (its
+    `submit_ns`), ending where the open `serve.job` started."""
+    if not ON or _job is None:
+        return
+    for t in tickets:
+        if t.submit_ns is not None:
+            _records.append(Record("serve.queue", t.submit_ns,
+                                   _job.start_ns, job=_job.job,
+                                   ticket=t.tid))
