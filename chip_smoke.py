@@ -4090,16 +4090,26 @@ def main() -> None:
     # -- 5. serving -----------------------------------------------------------
     from repro_torch.serve import Server
     srv = Server(hw, backend="cuda", device="cuda")
+    _lib.reset_launch_counts()
     verdict = srv.register("resnet50", g, period_s=0.1, slots=4,
                            params=params)
     say(f"[serve] admitted resnet50: bound {verdict.response_bound_s * 1e3:.3f}"
         f" ms, deadline {verdict.deadline_s * 1e3:.1f} ms")
+    primed = _lib.graph_counts()
+    if primed != {"eager": 1, "captures": 1, "replays": 1,
+                  "capture_failures": 0}:
+        fail(f"[serve] register did not capture the runner's graph: "
+             f"{primed}")
     xs = rng.integers(-64, 64, size=(8, 224, 224, 3)).astype(np.int8)
     tickets = [srv.submit("resnet50", xs[i]) for i in range(8)]
     _lib.reset_launch_counts()
     srv.run(hyperperiods=2)
     torch.cuda.synchronize()
     serve_counts = _lib.launch_counts()
+    served = _lib.graph_counts()
+    jobs = srv.monitor.checks.get("resnet50", 0)
+    if served != {**served, "captures": 0, "eager": 0, "replays": jobs}:
+        fail(f"[serve] {jobs} jobs were not all graph replays: {served}")
     for i, t in enumerate(tickets):
         if t.status != "done":
             fail(f"ticket {t.tid} ended {t.status}: {t.error}")
@@ -4114,12 +4124,46 @@ def main() -> None:
         report["serve"].append({"tid": t.tid, "latency_ms":
                                 r.latency_s * 1e3,
                                 "met": r.deadline_met})
+        if not r.deadline_met:
+            fail(f"[serve] ticket {t.tid} missed its deadline with no "
+                 "fault injected")
     tele = srv.telemetry()
     say(f"[serve] {tele['metrics']['tickets']} tickets, "
-        f"{tele['metrics']['jobs']} jobs, launches {serve_counts}")
+        f"{tele['metrics']['jobs']} jobs ({served['replays']} graph "
+        f"replays), launches {serve_counts}")
     for k in CNN_KERNELS:
         if serve_counts[k] == 0:
             fail(f"kernel {k} was not launched on the CNN serving path")
+
+    # a replay's launch counts are the ones its capture counted: the
+    # profiler, which names the kernels a graph launches, holds them to
+    # what one served job runs
+    def served_job():
+        ts = [srv.submit("resnet50", xs[i]) for i in range(4)]
+        while not all(t.terminal for t in ts):
+            srv.step()
+    _lib.reset_launch_counts()
+    served_job()
+    torch.cuda.synchronize()
+    job_counts = _lib.launch_counts()
+    if _lib.graph_counts()["replays"] != 1:
+        fail(f"[serve] the served job was no replay: {_lib.graph_counts()}")
+    (by_name, busy_us, wall_us, names), tries = profile_confirm(
+        torch, served_job,
+        lambda ns: {k: sum(f"{k}_kernel" in n for n in ns)
+                    for k in _lib.KERNELS}, job_counts)
+    report["serve_profile"] = {"device_events": len(names),
+                               "busy_us": busy_us, "wall_us": wall_us,
+                               "kernels": tries[-1], "counters": job_counts}
+    if not names:
+        fail("[serve] the profiler recorded no device event of a replayed "
+             "job")
+    if tries[-1] != job_counts:
+        fail(f"[serve] profiler saw {tries} kernel launches in a replayed "
+             f"job ({len(tries)} tries), counters say {job_counts}")
+    say(f"[serve] profiled replayed job: {len(names)} device events, busy "
+        f"{busy_us:.0f} us of {wall_us:.0f} us; the profiler confirms the "
+        f"launches: {tries[-1]}")
 
     clock.lap("5 serve")
 

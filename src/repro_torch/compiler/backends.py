@@ -36,7 +36,14 @@ Built-in backends (see repro_torch/core/compiled.py for their numerics):
     kernels (`repro_torch.core.megakernel`): <= num_cores launches per
     program, requant fused in epilogues, scratchpad-budgeted segments.
     ``megakernel=False`` in the options selects the per-op kernel path. On
-    a CPU device every kernel wrapper takes its plain version.
+    a CUDA device the runner replays the program as a CUDA graph
+    (`GraphedRunner`): an input signature's first call runs eagerly, its
+    second captures the program and every later one replays it, each
+    graph holding about one job's activations until the runner goes. A
+    `Server` makes those two calls when it builds the runner, at its slot
+    count (`prime`), so the jobs it serves are all replays. On
+    a CPU device every kernel wrapper takes its plain version, and
+    nothing is captured.
   * ``mesh``  — the program sharded over a `torch.distributed` mesh
     (`repro_torch.cluster.mesh`): each rank runs its core block's tiles on
     K6 and all-reduces them; needs a machine with a mesh shape.
@@ -55,10 +62,12 @@ import warnings
 from typing import Callable
 
 import numpy as np
+import torch
 
 from .. import trace
 from ..core import compiled as _C
 from ..core import megakernel as _MK
+from ..kernels import _lib
 
 Runner = Callable[[dict], dict]
 
@@ -164,7 +173,6 @@ class Backend:
                 f"{sorted(self.capabilities.supported_options)}")
         dev = self.capabilities.requires_device
         if device is not None and dev == "cuda":
-            import torch
             if (torch.device(device).type == "cuda"
                     and not torch.cuda.is_available()):
                 raise BackendError(
@@ -305,8 +313,10 @@ def _numpy_single(prog: _C.CompiledProgram,
 
 def _numpy_io(fn, prog: _C.CompiledProgram, device, batched: bool) -> Runner:
     """numpy in/out around a batched torch program on `device` (a single
-    sample gets a leading batch axis of 1). Blocks until the result is on
-    the host. Its three phases are the spans `runner.upload`,
+    sample gets a leading batch axis of 1), run eagerly on every call: the
+    `torch` backend's runner, and the `cuda` backend's on a CPU device and
+    for a signature's first call (`GraphedRunner`). Blocks until the
+    result is on the host. Its three phases are the spans `runner.upload`,
     `runner.issue` (the program returns before the device finishes) and
     `runner.readback` (`repro_torch.trace`)."""
     def run(inputs: dict) -> dict:
@@ -338,13 +348,156 @@ def _cuda_fn(prog: _C.CompiledProgram, options: BackendOptions, device):
                                   max_kernels=options.max_kernels)
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One signature's captured program: the graph, its static input and
+    output tensors, and what one replay runs (launches by kernel, plain
+    steps)."""
+
+    graph: torch.cuda.CUDAGraph
+    ins: dict
+    outs: dict
+    launches: dict
+    plain: int
+
+
+class GraphedRunner:
+    """The `cuda` backend's runner on a CUDA device: `_numpy_io` around
+    the program `fn`, with each input signature's program captured once
+    into a `torch.cuda.CUDAGraph` and replayed.
+
+    A signature is every input's shape and dtype, leading batch axis
+    included. Its first call runs `fn` eagerly (`_numpy_io`), which builds
+    the kernels and fills the program's device cache and the split
+    workspaces at that size. Its second call captures `fn` over static
+    input tensors, on the side stream that `torch.cuda.graph` opens (span
+    `runner.capture`; nothing runs), and replays the graph; so does every
+    later call: the batch copied into the static inputs (`runner.upload`),
+    one replay on the current stream (`runner.issue`), the static outputs
+    read back (`runner.readback`: `to_numpy` waits, so no replay
+    overwrites an answer not yet on the host). A signature that never
+    repeats is never captured. A capture that raises leaves its signature
+    eager for the runner's life: one warning, one "capture_failures"
+    count, no retry. `prime(batch)` makes the eager call and the capture
+    at once, on zeros: a `Server` primes each runner at its slot count
+    when it builds it, so its served jobs are all replays.
+
+    Each graph keeps its static inputs, outputs and intermediates in a
+    private memory pool while the runner lives: about one job's
+    activations per signature.
+
+    Counts follow what the card runs: the K1-K3 launches counted while
+    capturing come off `kernels.launch_counts()`, and each replay adds them
+    back; under the recorder a replay adds the launches and plain steps to
+    the open `serve.job` (`trace.replayed`). `kernels.graph_counts()`
+    counts the calls ("eager" or "replays") and the "captures" and
+    "capture_failures". A replay's counts are the ones its capture counted,
+    not read anew: the card runs what was captured.
+
+    One thread drives a runner. The runners of a device share K1-K3's
+    split workspaces, so their programs run on one stream at a time."""
+
+    def __init__(self, fn, prog: _C.CompiledProgram, device, batched: bool):
+        self.fn, self.prog, self.device, self.batched = \
+            fn, prog, device, batched
+        self.eager = _numpy_io(fn, prog, device, batched)
+        self.dtypes = {name: _C._NP_DT[prog.buffers[i][2]]
+                       for name, i in prog.input_idx.items()}
+        self.seen: set = set()       # signatures called once
+        self.graphs: dict = {}       # signature -> _Graph, None: eager
+
+    def _host(self, inputs: dict) -> tuple[dict, tuple]:
+        """The inputs as the program's arrays, batch axis included, and
+        their signature."""
+        host = {name: np.asarray(inputs[name], dt)
+                for name, dt in self.dtypes.items()}
+        if not self.batched:
+            host = {name: v[None] for name, v in host.items()}
+        return host, tuple((name, v.shape, v.dtype.str)
+                           for name, v in host.items())
+
+    def __call__(self, inputs: dict) -> dict:
+        host, sig = self._host(inputs)
+        g = self.graphs.get(sig)
+        if g is None and sig in self.seen and sig not in self.graphs:
+            g = self._capture(sig, host)
+        if g is None:
+            self.seen.add(sig)
+            _lib.count_graph("eager")
+            return self.eager(inputs)
+        with trace.span("runner.upload"):
+            for name, v in host.items():
+                g.ins[name].copy_(torch.from_numpy(v))
+        with trace.span("runner.issue"):
+            g.graph.replay()
+            _lib.count_graph("replays")
+            _lib.add_launches(g.launches)
+            trace.replayed(sum(g.launches.values()), g.plain)
+        with trace.span("runner.readback"):
+            return _C.to_numpy(g.outs, self.batched)
+
+    def _capture(self, sig: tuple, host: dict) -> _Graph | None:
+        """Capture `fn` over new static inputs of the signature's shapes;
+        None (and eager from then on) if the capture raised."""
+        with trace.span("runner.capture"):
+            ins = {name: torch.empty_like(torch.from_numpy(v),
+                                          device=self.device)
+                   for name, v in host.items()}
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with trace.Tally() as tally, torch.cuda.graph(graph):
+                    outs = self.fn(ins)
+            except RuntimeError as e:
+                outs = None          # the capture can fail at its end
+                warnings.warn(
+                    f"cuda backend: capturing program "
+                    f"{self.prog.graph.name!r} at {sig} failed ({e}); that "
+                    "signature runs eagerly from now on", RuntimeWarning,
+                    stacklevel=3)
+            if outs is None:
+                _lib.count_graph("capture_failures")
+                self.graphs[sig] = None
+                return None
+            _lib.count_graph("captures")
+            g = self.graphs[sig] = _Graph(graph, ins, outs, tally.launches,
+                                          tally.plain_steps)
+            return g
+
+    def prime(self, batch: int) -> None:
+        """Capture the graph of the signature of `batch` rows (a batched
+        runner; a single-sample runner ignores `batch`) now, on zero
+        inputs: the eager call and the capture that the signature's first
+        two calls would make, or what of them has not happened yet. A
+        server primes its runners when it builds them, so no served job
+        runs eagerly or captures."""
+        lead = (batch,) if self.batched else ()
+        zeros = {name: np.zeros(lead + tuple(self.prog.buffers[i][1]),
+                                self.dtypes[name])
+                 for name, i in self.prog.input_idx.items()}
+        sig = self._host(zeros)[1]
+        for _ in range(2):
+            if sig not in self.graphs:
+                self(zeros)
+
+
+def prime(runner: Runner, batch: int) -> Runner:
+    """`runner`, with the CUDA graph of its `batch`-row signature captured
+    now if it is a `GraphedRunner` (`GraphedRunner.prime`); any other
+    runner is returned as it is."""
+    if isinstance(runner, GraphedRunner):
+        runner.prime(batch)
+    return runner
+
+
 def _cuda_factory(batched: bool):
     def factory(prog: _C.CompiledProgram,
                 options: BackendOptions | None = None,
                 device="cuda") -> Runner:
         dev = _C.resolve_device(device)
         fn = _cuda_fn(prog, options or BackendOptions(), dev)
-        return _numpy_io(fn, prog, dev, batched)
+        if dev.type != "cuda":
+            return _numpy_io(fn, prog, dev, batched)
+        return GraphedRunner(fn, prog, dev, batched)
     return factory
 
 

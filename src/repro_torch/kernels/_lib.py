@@ -12,8 +12,13 @@ or a failed load raises.
 
 Launch counters: a kernel wrapper adds one to its counter after its kernel
 launched without error, and nowhere else; a call that takes the plain
-version (a CPU tensor) counts nothing. `reset_launch_counts` /
-`launch_counts` read them.
+version (a CPU tensor) counts nothing. A CUDA graph's capture takes the
+launches it counted off again, and each replay adds them back
+(`add_launches`), so the counters say what the card ran.
+`reset_launch_counts` / `launch_counts` read them. Beside them,
+`graph_counts` counts the `cuda` backend's program calls by how they ran
+(`compiler/backends.py::GraphedRunner`): "eager", "captures", "replays"
+and "capture_failures"; `reset_launch_counts` zeroes both.
 
 The libraries launch on the current device: a wrapper makes its tensors'
 card current around the call (`with torch.cuda.device(...)`). No wrapper
@@ -49,8 +54,23 @@ KERNELS = ("gemm_int8", "conv2d_int8", "megakernel", "flash_attention",
 _COUNTS = {k: 0 for k in KERNELS}
 
 
+GRAPH_EVENTS = ("captures", "replays", "eager", "capture_failures")
+_GRAPHS = {k: 0 for k in GRAPH_EVENTS}
+
+
 def count_launch(kernel: str) -> None:
     _COUNTS[kernel] += 1
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add `counts` (kernel -> launches; negative takes launches off) to
+    the launch counters."""
+    for k, n in counts.items():
+        _COUNTS[k] += n
+
+
+def count_graph(event: str) -> None:
+    _GRAPHS[event] += 1
 
 
 def refuse_grad(kernel: str, *tensors) -> None:
@@ -68,10 +88,16 @@ def refuse_grad(kernel: str, *tensors) -> None:
 def reset_launch_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+    for k in _GRAPHS:
+        _GRAPHS[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_COUNTS)
+
+
+def graph_counts() -> dict[str, int]:
+    return dict(_GRAPHS)
 
 
 def sources_hash() -> str:

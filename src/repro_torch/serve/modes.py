@@ -104,7 +104,8 @@ def prepare_mode(server, mode: Mode) -> StagedMode:
     from ..core.wcet import analyze_taskset
     from ..core.compiled import supports_graph
     from ..compiler import compile as compile_deployment
-    from .runtime import AdmissionError, RequestQueue, _Network, _as_graph
+    from .runtime import (AdmissionError, RequestQueue, _Network, _as_graph,
+                          _primed_runner)
 
     nets: dict[str, _Network] = {}
     for row in mode.networks:
@@ -137,6 +138,5 @@ def prepare_mode(server, mode: Mode) -> StagedMode:
             params=st.params, num_cores=server.num_cores,
             arbitration=server.arbitration,
             backend_options=server.backend_options, device=server.device)
-        st.runner = st.deployment.runner(batched=True,
-                                         backend=server.backend)
+        st.runner = _primed_runner(st.deployment, server.backend, st.slots)
     return StagedMode(mode=mode, nets=nets, report=report, compiled=compiled)

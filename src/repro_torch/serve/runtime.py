@@ -24,7 +24,10 @@ The pieces, mirroring the paper's deployment story:
     the stalest ticket), feeding static batch slots (`slots=`): the
     deployment's batched runner is always invoked at the fixed slot count
     (short batches are zero-padded and masked out), so serving keeps the
-    fixed shapes the WCET machinery was computed for.
+    fixed shapes the WCET machinery was computed for. On the card that
+    runner's CUDA graph at the slot count is captured where the runner is
+    built (`register`, `load`, a mode's preparation), so every served job
+    replays it.
   * **release-order execution** — `step()` executes the next job of the
     compiled hyperperiod program; `run()` continues across hyperperiod
     boundaries (the job cursor wraps, releases accumulate absolute time).
@@ -302,6 +305,15 @@ class _Network:
     breaker: object = None               # faults.CircuitBreaker (resilience)
     watchdog: object = None              # StragglerWatchdog (resilience)
     jobs_done: int = 0                   # executed jobs (watchdog step index)
+
+
+def _primed_runner(dep, backend: str, slots: int) -> Callable:
+    """`dep`'s batched runner on `backend`, primed at `slots` rows
+    (`compiler.backends.prime`): on the card its CUDA graph is captured
+    now, so no served job runs eagerly or captures, and the deadline
+    monitor calibrates on a replay."""
+    from ..compiler.backends import prime
+    return prime(dep.runner(batched=True, backend=backend), slots)
 
 
 def _as_graph(net, name: str, *, batch: int, cache_len: int,
@@ -598,7 +610,7 @@ class Server:
             params=st.params, num_cores=self.num_cores,
             arbitration=self.arbitration,
             backend_options=self.backend_options, device=self.device)
-        st.runner = st.deployment.runner(batched=True, backend=self.backend)
+        st.runner = _primed_runner(st.deployment, self.backend, st.slots)
 
     def attach(self, name: str, step_fn: Callable) -> None:
         """(Re)attach the execution callable of a step_fn-driven network —
@@ -1308,6 +1320,9 @@ class Server:
                                      backend_options=self.backend_options,
                                      device=self.device)
             eng = BatchedInferenceEngine.from_deployment(dep)
+            rows = np.shape(next(iter(inp.values())) if isinstance(inp, dict)
+                            else inp)[0]
+            _primed_runner(dep, dep.backend, rows)    # the engine's runner
             st.step_fn = (lambda e=eng, x=inp: e.infer(x))
             st.autorun = True
             st.deployment = dep          # the artifact (bundles save this)
@@ -1436,7 +1451,7 @@ class Server:
                         slots=net.get("slots", 1))
                 st = srv._nets[name]
                 st.deployment = dep
-                st.runner = dep.runner(batched=True, backend=srv.backend)
+                st.runner = _primed_runner(dep, srv.backend, st.slots)
             else:
                 graph = objects.get("graphs", {}).get(name)
                 if graph is None:

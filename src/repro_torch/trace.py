@@ -17,14 +17,17 @@ same name, so the device trace holds the program's spans on the
 profiler's own clock, beside the kernels.
 
 The spans of a CNN job (`serve.*` in `serve/runtime.py::Server`, `runner.*`
-in `compiler/backends.py::_numpy_io`):
+in `compiler/backends.py::_numpy_io` and `GraphedRunner`):
 
     serve.step            the whole of `Server.step`
       serve.job           `_execute_job` for one job (job id, network)
         serve.stack       batch assembly and padding (`Server._stack`)
-        runner.upload     the batch to the device (`to_device`)
+        runner.capture    a CUDA graph's capture (once per signature)
+        runner.upload     the batch to the device (`to_device`, or a copy
+                          into the graph's static inputs)
         runner.issue      the program's body: issues the launches and the
-                          plain steps, returns before the device finishes
+                          plain steps (or one graph replay), returns before
+                          the device finishes
         runner.readback   `to_numpy`: the host waiting for the device, and
                           the copy of the output
         serve.finish      the deadline check and each ticket's result
@@ -34,9 +37,20 @@ in `compiler/backends.py::_numpy_io`):
 Counters, summed on the open `serve.job` record: `launches` and `launch_ns`
 (the kernel launches of the K1-K3 wrapper calls in the program's body and
 the host time of those calls; `kernel(name)` times them and, under the
-profiler, names them `kernel.<name>`), and `plain_steps` (the plain torch
-steps run between launches). `plain_steps()` is the plain-step total since
-`reset()`; it is apart from `kernels.launch_counts()`.
+profiler, names them `kernel.<name>`), `plain_steps` (the plain torch
+steps run between launches) and `replayed`. `plain_steps()` is the
+plain-step total since `reset()`; it is apart from
+`kernels.launch_counts()`.
+
+A job whose program the `cuda` backend replayed as a CUDA graph
+(`compiler/backends.py::GraphedRunner`) runs no wrapper and no plain step
+on the host: `runner.upload` copies into the graph's static inputs,
+`runner.issue` is the replay, `replayed` reads 1, `launches` and
+`plain_steps` are the ones the graph's capture counted (what the card
+runs), and `launch_ns` reads 0. The capture itself counts nothing
+(`Tally`); its `runner.capture` span lies where the runner was primed
+(`GraphedRunner.prime`, outside any job when a `Server` builds the
+runner), or in the job that called a signature the second time.
 
 One serving thread: the open spans are one stack for the process."""
 
@@ -48,8 +62,9 @@ import torch
 
 from .kernels import _lib
 
-NAMES = ("serve.step", "serve.job", "serve.stack", "runner.upload",
-         "runner.issue", "runner.readback", "serve.finish", "serve.queue")
+NAMES = ("serve.step", "serve.job", "serve.stack", "runner.capture",
+         "runner.upload", "runner.issue", "runner.readback", "serve.finish",
+         "serve.queue")
 KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
 KERNEL_NAMES = tuple(f"kernel.{k}" for k in KERNELS)
 
@@ -61,7 +76,7 @@ _plain = 0
 
 
 FIELDS = ("name", "start_ns", "end_ns", "parent", "job", "ticket", "net",
-          "launches", "launch_ns", "plain_steps")
+          "launches", "launch_ns", "plain_steps", "replayed")
 
 
 class Record:
@@ -69,7 +84,8 @@ class Record:
     index of its `parent` in `records()` (None at the top), and the `job`
     and `ticket` ids it belongs to (None where it has none). A `serve.job`
     also carries its network (`net`) and counters: `launches`,
-    `launch_ns`, `plain_steps`. Entered (`span`), it is the open span."""
+    `launch_ns`, `plain_steps`, and `replayed` (1 when its program was a
+    graph replay). Entered (`span`), it is the open span."""
 
     __slots__ = FIELDS + ("_rf",)
 
@@ -78,6 +94,7 @@ class Record:
         self.name, self.start_ns, self.end_ns = name, start_ns, end_ns
         self.parent, self.job, self.ticket, self.net = None, job, ticket, net
         self.launches = self.launch_ns = self.plain_steps = 0
+        self.replayed = 0
         self._rf = None
 
     def asdict(self) -> dict:
@@ -223,6 +240,49 @@ def plain_step() -> None:
         _plain += 1
         if _job is not None:
             _job.plain_steps += 1
+
+
+class Tally:
+    """`with Tally() as t:` around a program body that is captured into a
+    CUDA graph and not run: what the body would run is counted into
+    `t.launches` (kernel -> K1-K3 launches) and `t.plain_steps`, whether
+    the recorder is on or not, and none of it reaches
+    `kernels.launch_counts()`, the open `serve.job` or `plain_steps()`.
+    The body opens no span."""
+
+    launches: dict = {}
+    plain_steps = 0
+
+    def __enter__(self):
+        global ON, _job, _plain
+        self._saved = ON, _job, _plain
+        self._counts = _lib.launch_counts()
+        ON, _job, _plain = True, None, 0
+        return self
+
+    def __exit__(self, *exc):
+        global ON, _job, _plain
+        after = _lib.launch_counts()
+        self.launches = {k: after[k] - n for k, n in self._counts.items()
+                         if after[k] != n}
+        _lib.add_launches({k: -n for k, n in self.launches.items()})
+        self.plain_steps = _plain
+        ON, _job, _plain = self._saved
+        return False
+
+
+def replayed(launches: int, plain: int) -> None:
+    """Count one replay of a captured program body that launches
+    `launches` kernels and runs `plain` plain steps, while on: both add to
+    the open `serve.job`, which reads `replayed` 1, and the plain steps to
+    `plain_steps()`."""
+    global _plain
+    if ON:
+        _plain += plain
+        if _job is not None:
+            _job.launches += launches
+            _job.plain_steps += plain
+            _job.replayed = 1
 
 
 def stamp() -> int | None:
