@@ -1,7 +1,7 @@
 """CPU tests of the benchmark's own arithmetic: traffic from the seed,
 percentiles and rates over all samples, the roofline counts against the
-port's smoke run, the JAX check, the device trace's reduction, and the
-shape of BENCHMARK.json."""
+port's smoke run, the open loop's wait, the JAX check, the device
+trace's reduction, and the shape of BENCHMARK.json."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 sys.path.insert(0, str(BENCH))
 
-from harness import bounds, common, trace, traffic  # noqa: E402
+from harness import bounds, cnn, common, trace, traffic  # noqa: E402
 
 BIG_SEED = 2 ** 31 + 987_654_321
 
@@ -81,6 +81,42 @@ def test_roofline_counts_equal_the_smoke_runs(H, C, N, k, stride, pad):
     bounds.k2_launch(bd, 1, H, W, C, oh * ow, K, N, True)
     assert bd.s * 1e3 == pytest.approx(want.ms, rel=1e-12)
     assert bd.by == want.by
+
+
+class FakeClock:
+    """A clock that moves only when read or slept on: each reading
+    advances it by `tick`, each sleep by the time asked plus an
+    overshoot drawn from `over`."""
+
+    def __init__(self, tick, over):
+        self.t, self.tick, self.over = 100.0, tick, over
+        self.sleeps = []
+
+    def clock(self):
+        self.t += self.tick
+        return self.t
+
+    def sleep(self, s):
+        self.sleeps.append(s)
+        self.t += s + self.over()
+
+
+@pytest.mark.parametrize("tick,over", [
+    (1e-7, lambda: 0.0), (2e-6, lambda: 0.9e-3), (1e-7, lambda: 5e-3),
+    (3e-4, lambda: 0.2e-3)])
+def test_open_loop_wait_never_returns_before_due(tick, over):
+    import random
+    rnd = random.Random(4)
+    fc = FakeClock(tick, lambda: over() * rnd.random())
+    for k in range(200):
+        due = 100.0 + k / 30.0 + 1e-3 * rnd.random()
+        now = cnn.wait_until(due, fc.clock, fc.sleep)
+        assert now >= due and fc.t >= due
+    # it sleeps only up to SPIN_S before the due time
+    assert all(s > 0 for s in fc.sleeps)
+    fc = FakeClock(1e-7, lambda: 0.0)
+    cnn.wait_until(fc.t + 0.5, fc.clock, fc.sleep)
+    assert fc.sleeps and fc.sleeps[0] <= 0.5 - cnn.SPIN_S + 1e-6
 
 
 def test_jax_check_compares_whole_top_level_names():
