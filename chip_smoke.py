@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
     python3 chip_smoke.py --decode-turns TREE [TREE ...]   # e.g. A B B A
+    python3 chip_smoke.py --yolov5s  # phases 1, 2 and 5d alone
 
 The second form reads phases 6, 7 and 9's bf16 decode steps (zamba2-1.2B,
 rwkv6-1.6B, seamless-m4t-medium) with the package of each TREE (the root
 of an unpacked `git archive`), one fresh process per turn, in the order
 given: the measuring code is this script's for every tree, so only the
 package differs between turns. Results go to
-chiprun_out/decode_turns.json.
+chiprun_out/decode_turns.json. The third runs the environment, the build
+and phase 5d, and ends with the same result lines, lut_int8 alone in
+the kernels line.
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -50,6 +53,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      carried-over detector tickets run bit-exact on the staged deployment
      (K1-K3 launched after the swap), and an unschedulable mode is refused
      without touching the server;
+     5d. YOLOv5s: `cnn.yolov5s()` at 640 x 640, 80 classes, through a
+     `Server` on the graphed runner (batch-8 jobs, every served job a
+     replay): each answer bit-exact against the plain "torch" backend on
+     the card, two against the numpy oracle `run_numpy`; lut_int8 (the
+     SiLU table) against its plain version at the largest and smallest
+     SiLU of a batch-8 job, launches and bytes counted from zero around
+     each, with the kernel's, the plain version's, `torch.index_select`'s
+     and the bound's times; the answers' readback into the runner's
+     page-locked host arrays (reads reused, made, pageable) and, on the
+     same 68.5 MB, a copy into new pageable memory beside one into
+     page-locked memory;
   6. LM: K4 (flash attention) and K5 (the gated scan) against their plain
      torch versions on the card (K4 in f32, bf16 and f16 on the CPU tests'
      shapes and on the moe and encdec paths' shapes: head dim 128 with 6 q
@@ -1772,6 +1786,190 @@ def seamless_phase(torch, np, rng, report) -> dict:
 
 # the (data, model) mesh of phase 10b: two processes on the one card
 MESH_B = (1, 2)
+
+
+def yolov5s_phase(torch, np, rng, kernels, report) -> int:
+    """Phase 5d: YOLOv5s at 640 through the Server, lut_int8 at the job's
+    SiLU sizes, the answers' readback. Returns the served jobs' lut_int8
+    launches."""
+    import repro_torch
+    from repro_torch.compiler.backends import GraphedRunner, HostOuts
+    from repro_torch.core import cnn, init_params
+    from repro_torch.core import compiled as C
+    from repro_torch.core.quantize import silu_table
+    from repro_torch.hw import scaled_paper_machine
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.lut_int8 import (lut_bytes, lut_int8,
+                                              lut_int8_plain)
+    from repro_torch.serve import Server
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    dev = torch.device("cuda")
+    hw = scaled_paper_machine(64)
+    g = cnn.yolov5s()
+    params = init_params(g, seed=SEED)
+    out_name = g.outputs[0]
+    B, n_jobs = 8, 6
+    silus = [op for op in g.ops if op.kind == "silu"]
+    per_job = {"lut_int8": len(silus),
+               "bytes": sum(lut_bytes(B * g.tensors[op.outputs[0]].size)
+                            for op in silus)}
+
+    srv = Server(hw, backend="cuda", device="cuda")
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    verdict = srv.register("yolov5s", g, period_s=0.1, deadline_s=0.1,
+                           slots=B, params=params)
+    out["register_s"] = time.perf_counter() - t0
+    say(f"[yolov5s] admitted {g.name} at 640 x 640, 80 classes: WCET bound "
+        f"{verdict.response_bound_s * 1e3:.3f} ms, register (compile, "
+        f"eager call, capture) {out['register_s']:.1f} s")
+    primed = _lib.graph_counts()
+    if primed != {"eager": 1, "captures": 1, "replays": 1,
+                  "capture_failures": 0}:
+        fail(f"[yolov5s] register did not capture the runner's graph: "
+             f"{primed}")
+    runner = srv._nets["yolov5s"].runner
+    if not isinstance(runner, GraphedRunner):
+        fail(f"[yolov5s] the served runner is a {type(runner).__name__}")
+    xs = rng.integers(-64, 64, size=(n_jobs * B, 640, 640, 3)
+                      ).astype(np.int8)
+    answers, lat = [], []
+    _lib.reset_launch_counts()
+    for j in range(n_jobs):
+        ts = [srv.submit("yolov5s", xs[j * B + i]) for i in range(B)]
+        while not all(t.terminal for t in ts):
+            srv.step()
+        for t in ts:
+            if t.status != "done":
+                fail(f"[yolov5s] ticket {t.tid} ended {t.status}: {t.error}")
+            r = t.result()
+            answers.append(np.array(r.output[out_name]))
+        lat.append(r.latency_s * 1e3)
+        del ts, r, t                 # the job's host arrays go free
+    torch.cuda.synchronize()
+    served = _lib.graph_counts()
+    launches = _lib.launch_counts()
+    nbytes = _lib.byte_counts()["lut_int8"]
+    jobs = srv.monitor.checks.get("yolov5s", 0)
+    if jobs != n_jobs or served != {**served, "captures": 0, "eager": 0,
+                                    "replays": jobs}:
+        fail(f"[yolov5s] {jobs} jobs of {n_jobs} were not all graph "
+             f"replays: {served}")
+    if launches["lut_int8"] != jobs * per_job["lut_int8"] or \
+            nbytes != jobs * per_job["bytes"]:
+        fail(f"[yolov5s] lut_int8 launched {launches['lut_int8']} times "
+             f"over {nbytes} bytes in {jobs} jobs, the plan says "
+             f"{per_job['lut_int8']} and {per_job['bytes']} a job")
+    hosts = [gr.host for gr in runner.graphs.values() if gr is not None]
+    reads = {k: sum(getattr(h, k) for h in hosts)
+             for k in ("made", "reused", "pageable")}
+    pinned = all(t.is_pinned() for h in hosts for s in h.sets
+                 for t, _ in s.values())
+    say(f"[yolov5s] {jobs} batch-8 jobs, all graph replays ({served}); "
+        f"launches a job {({k: v // jobs for k, v in launches.items()})}, "
+        f"lut_int8 bytes a job {nbytes // jobs}; job latency median "
+        f"{statistics.median(lat):.2f} ms ({', '.join(f'{v:.2f}' for v in lat)}"
+        f"); readback host arrays {reads}, page-locked {pinned}")
+    if reads["pageable"] or not pinned:
+        fail("[yolov5s] answers dropped at once were read into pageable "
+             "memory")
+
+    # every answer against the plain torch program on the card, two
+    # against the numpy oracle
+    dep = repro_torch.compile(g, hw, backend="torch", params=params,
+                              device="cuda")
+    for j in range(n_jobs):
+        want = dep.run({"input": xs[j * B:(j + 1) * B]}, batched=True)
+        for i in range(B):
+            if not np.array_equal(answers[j * B + i], want[out_name][i]):
+                fail(f"[yolov5s] job {j} frame {i} differs from the torch "
+                     "backend")
+    t0 = time.perf_counter()
+    for i in (0, n_jobs * B - 1):
+        want = C.run_numpy(dep.program, {"input": xs[i]})[out_name]
+        if not np.array_equal(answers[i], want):
+            d = np.abs(answers[i].astype(np.int64) - want).max()
+            fail(f"[yolov5s] frame {i} differs from run_numpy (max |d| {d})")
+    out["oracle_s"] = time.perf_counter() - t0
+    nz = float(np.mean(np.stack(answers) != 0))
+    say(f"[yolov5s] {len(answers)} answers {answers[0].shape} "
+        f"{answers[0].dtype} bit-exact against the torch backend, 2 "
+        f"against run_numpy ({out['oracle_s']:.1f} s); nonzero share "
+        f"{nz:.3f}")
+    out.update(jobs=jobs, job_ms=lat, reads=reads, launches_per_job={
+        k: v // jobs for k, v in launches.items()}, nonzero_share=nz,
+        wcet_bound_ms=verdict.response_bound_s * 1e3)
+    del srv, dep, answers
+    free(torch, out)
+
+    # lut_int8 at the largest and smallest SiLU of a batch-8 job
+    table = torch.as_tensor(silu_table(1 / 16, 1 / 16)).to(dev)
+    sizes = sorted({B * g.tensors[op.outputs[0]].size for op in silus})
+    out["lut"] = []
+    for n in (sizes[-1], sizes[0]):
+        x = torch.as_tensor(rng.integers(-128, 128, size=n).astype(
+            np.int8)).to(dev)
+        _lib.reset_launch_counts()
+        y = lut_int8(x, table)
+        torch.cuda.synchronize()
+        got = (_lib.launch_counts()["lut_int8"],
+               _lib.byte_counts()["lut_int8"])
+        if got != (1, lut_bytes(n)):
+            fail(f"[lut_int8] n {n}: counted {got}, want "
+                 f"(1, {lut_bytes(n)})")
+        err = expect_equal(torch, f"lut_int8 n {n}", y,
+                           lut_int8_plain(x, table))
+        kernels["lut_int8"]["max_abs_err"] = max(
+            kernels["lut_int8"]["max_abs_err"], err)
+        idx = x.to(torch.int32) + 128
+        if not torch.equal(torch.index_select(table, 0, idx), y):
+            fail(f"[lut_int8] n {n}: torch.index_select disagrees")
+        ms = graph_ms(torch, lambda: lut_int8(x, table))
+        pms = graph_ms(torch, lambda: lut_int8_plain(x, table))
+        lib = graph_ms(torch, lambda: torch.index_select(table, 0, idx))
+        bd = Bound()
+        b = bd.add(lut_bytes(n), 0)
+        say(f"[lut_int8] n {n} ({lut_bytes(n) / 1e6:.2f} MB): equal, 1 "
+            f"launch, {lut_bytes(n)} bytes counted; kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, library (torch.index_select, int32 "
+            f"indices made beforehand) {lib:.4f} ms, bound {b:.5f} ms "
+            f"(bytes): {100 * b / ms:.1f}% of it")
+        c = {"kernel": "lut_int8", "n": n, "ms": ms, "plain_ms": pms,
+             "library_ms": lib, "bound_ms": b, "bound_by": bd.by}
+        out["lut"].append(c)
+        report["checks"].append(c)
+        del x, y, idx
+    kernels["lut_int8"].update({k: out["lut"][0][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+
+    # the answers' readback: a batch-8 job's 68.5 MB into new pageable
+    # memory (as `to_numpy`), into page-locked memory, and through the
+    # runner's reused host arrays
+    dout = torch.randint(-2 ** 31, 2 ** 31 - 1, (B, 25200, 85),
+                         dtype=torch.int32, device=dev)
+    pin = torch.empty(dout.shape, dtype=dout.dtype, pin_memory=True)
+    h = HostOuts(dev)
+    mb = dout.numel() * 4 / 1e6
+    rb = {"mb": mb,
+          "pageable_ms": host_ms(torch, lambda: dout.cpu().numpy()),
+          "pinned_ms": host_ms(torch, lambda: pin.copy_(dout)),
+          "host_outs_ms": host_ms(torch, lambda: h.read({"o": dout}, True))}
+    if not np.array_equal(h.read({"o": dout}, True)["o"], dout.cpu().numpy()):
+        fail("[yolov5s] HostOuts read back other values")
+    say(f"[yolov5s] readback of {mb:.1f} MB: new pageable "
+        f"{rb['pageable_ms']:.2f} ms ({mb / rb['pageable_ms']:.2f} GB/s), "
+        f"page-locked {rb['pinned_ms']:.2f} ms "
+        f"({mb / rb['pinned_ms']:.2f} GB/s), HostOuts "
+        f"{rb['host_outs_ms']:.2f} ms (reads made {h.made}, reused "
+        f"{h.reused}, pageable {h.pageable})")
+    out["readback"] = rb
+    del dout, pin, h
+    free(torch, out)
+    phase_end(torch, "yolov5s", t_phase, out)
+    report["yolov5s"] = out
+    return launches["lut_int8"]
 
 
 def free_port() -> int:
@@ -3556,7 +3754,56 @@ def decode_turns(trees: list) -> None:
         {"card": smi, "turns": turns}, indent=1))
 
 
-def main() -> None:
+# each kernel's source and the TPU kernel it replaces
+WHERE = {
+    "gemm_int8": ("src/repro_torch/csrc/gemm_int8.cu",
+                  "src/repro/kernels/gemm_int8.py:120"),
+    "conv2d_int8": ("src/repro_torch/csrc/conv2d_im2col.cu",
+                    "src/repro/kernels/conv2d_im2col.py:82"),
+    "megakernel": ("src/repro_torch/csrc/megakernel.cu",
+                   "src/repro/core/megakernel.py:261"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:88"),
+    "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:53"),
+    "tiled_int8": ("src/repro_torch/csrc/tiled_int8.cu",
+                   "src/repro/cluster/mesh.py:106"),
+    "lut_int8": ("src/repro_torch/csrc/lut_int8.cu",
+                 "none: the JAX package has no table op"),
+}
+
+
+def result_lines(torch, report, kernels, launches, smi, clock) -> None:
+    """The run's last lines: the phases' seconds, one JSON line with the
+    numbers of each kernel in `launches`, the card, and the ok line; the
+    whole report to chiprun_out/chip_smoke.json."""
+    from repro_torch.kernels import _lib
+    line = {"kernels": []}
+    for k in _lib.KERNELS:
+        if k not in launches:
+            continue
+        kd = kernels[k]
+        line["kernels"].append({
+            "name": k, "route": "cuda", "source": WHERE[k][0],
+            "replaces": WHERE[k][1], "launches": launches[k],
+            "max_abs_err": kd["max_abs_err"], "ms": kd["ms"],
+            "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
+            "bound_by": kd["bound_by"],
+            "library_ms": kd["library_ms"]})
+    report["kernels"] = line["kernels"]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    report["phases_s"] = clock.summary()
+    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    say("[phases] " + json.dumps(report["phases_s"]))
+    print(json.dumps(line), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(yolo_only: bool = False) -> None:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from the repository")
     sys.path.insert(0, str(SRC))
@@ -3641,6 +3888,12 @@ def main() -> None:
 
     kernels = {k: {"max_abs_err": 0} for k in _lib.KERNELS}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if yolo_only:
+        n_lut = yolov5s_phase(torch, np, rng, kernels, report)
+        clock.lap("5d yolov5s")
+        result_lines(torch, report, kernels, {"lut_int8": n_lut}, smi,
+                     clock)
+        return
 
     # -- 3a. K1 --------------------------------------------------------------
     # the classifier at batch 1 and 8 (skinny route) and 256 (tensor cores)
@@ -4179,6 +4432,10 @@ def main() -> None:
     dep.save(str(rtdep))
     clock.lap("5c modes")
 
+    # -- 5d. YOLOv5s at 640 through the Server; lut_int8 -----------------
+    yolo_lut = yolov5s_phase(torch, np, rng, kernels, report)
+    clock.lap("5d yolov5s")
+
     # -- 6. LM: zamba2-1.2B through Server.register_decode ---------------------
     lm_counts = lm_phase(torch, np, rng, kernels, report, smi, rtdep, clock)
     del srv
@@ -4206,21 +4463,6 @@ def main() -> None:
     tp_k4 = tp_phase(torch, np, kernels, report, smi)
     clock.lap("12 tensor parallel")
 
-    # -- result lines ---------------------------------------------------------
-    where = {
-        "gemm_int8": ("src/repro_torch/csrc/gemm_int8.cu",
-                      "src/repro/kernels/gemm_int8.py:120"),
-        "conv2d_int8": ("src/repro_torch/csrc/conv2d_im2col.cu",
-                        "src/repro/kernels/conv2d_im2col.py:82"),
-        "megakernel": ("src/repro_torch/csrc/megakernel.cu",
-                       "src/repro/core/megakernel.py:261"),
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:88"),
-        "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
-                     "src/repro/kernels/ssm_scan.py:53"),
-        "tiled_int8": ("src/repro_torch/csrc/tiled_int8.cu",
-                       "src/repro/cluster/mesh.py:106"),
-    }
     # an LM kernel's launches: its serving runs on the LM main paths
     # (zamba2-1.2b, rwkv6-1.6b and mixtral-8x22b through the Server,
     # seamless-m4t-medium through ServeEngine.serve) and, for K4, the
@@ -4230,33 +4472,15 @@ def main() -> None:
                    for k in LM_KERNELS},
                 "tiled_int8": k6_launches}
     launches["flash_attention"] += train_k4 + tp_k4
+    launches["lut_int8"] = yolo_lut
     report["launches_by_path"] = {"zamba2-1.2b": lm_counts, **family_counts,
                                   "train smollm-135m": {
                                       "flash_attention": train_k4},
                                   "tensor parallel (1, 3) and int8 KV "
                                   "cache (1, 2)": {
-                                      "flash_attention": tp_k4}}
-    line = {"kernels": []}
-    for k in _lib.KERNELS:
-        kd = kernels[k]
-        line["kernels"].append({
-            "name": k, "route": "cuda", "source": where[k][0],
-            "replaces": where[k][1], "launches": launches[k],
-            "max_abs_err": kd["max_abs_err"], "ms": kd["ms"],
-            "plain_ms": kd["plain_ms"], "bound_ms": kd["bound_ms"],
-            "bound_by": kd["bound_by"],
-            "library_ms": kd["library_ms"]})
-    report["kernels"] = line["kernels"]
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    report["phases_s"] = clock.summary()
-    (out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    say("[phases] " + json.dumps(report["phases_s"]))
-    print(json.dumps(line), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+                                      "flash_attention": tp_k4},
+                                  "yolov5s-640": {"lut_int8": yolo_lut}}
+    result_lines(torch, report, kernels, launches, smi, clock)
 
 
 if __name__ == "__main__":
@@ -4273,5 +4497,7 @@ if __name__ == "__main__":
         decode_turn(Path(sys.argv[2]), Path(sys.argv[3]))
     elif sys.argv[1:2] == ["--decode-turns"]:
         decode_turns(sys.argv[2:])
+    elif sys.argv[1:2] == ["--yolov5s"]:
+        main(yolo_only=True)
     else:
         main()

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import sys
 import warnings
 from typing import Callable
 
@@ -348,17 +349,72 @@ def _cuda_fn(prog: _C.CompiledProgram, options: BackendOptions, device):
                                   max_kernels=options.max_kernels)
 
 
+class HostOuts:
+    """The host arrays a graph's outputs are read back into: page-locked
+    on a CUDA device, so the copy runs at the link's rate rather than
+    through the driver's staging into pageable memory, and reused.
+
+    A set of arrays is reused only while nothing outside it refers to any
+    of them: the arrays a read returns, and every numpy view of them (a
+    ticket's answer is one), hold their set, so an answer the caller keeps
+    is never overwritten. At most `SETS` sets are made: a caller that
+    drops each answer before the next read needs one, and one more leaves
+    room for an answer kept a while. When each is held,
+    the read copies into new pageable arrays (`to_numpy`) as an eager
+    call does. `reused`, `made` and `pageable` count the reads of each
+    kind."""
+
+    SETS = 2
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.sets: list[dict] = []       # name -> (host tensor, its array)
+        self.free_refs = 0               # `_refs` of a set nobody holds
+        self.reused = self.made = self.pageable = 0
+
+    @staticmethod
+    def _refs(s: dict) -> int:
+        return max(sys.getrefcount(a) for _, a in s.values())
+
+    def read(self, outs: dict, batched: bool) -> dict:
+        s = next((s for s in self.sets if self._refs(s) <= self.free_refs),
+                 None)
+        if s is not None:
+            self.reused += 1
+        elif len(self.sets) < self.SETS:
+            pin = self.device.type == "cuda"
+            s = {}
+            for k, v in outs.items():
+                t = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+                s[k] = (t, t.numpy())
+            self.sets.append(s)
+            self.free_refs = self._refs(s)
+            self.made += 1
+        else:
+            self.pageable += 1
+            return _C.to_numpy(outs, batched)
+        for k, v in outs.items():
+            s[k][0].copy_(v, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return {k: a if batched else a[0] for k, (_, a) in s.items()}
+
+
 @dataclasses.dataclass
 class _Graph:
     """One signature's captured program: the graph, its static input and
-    output tensors, and what one replay runs (launches by kernel, plain
-    steps)."""
+    output tensors, what one replay runs (launches and bytes by kernel,
+    plain steps, and those by op kind), and the host arrays its outputs
+    are read into."""
 
     graph: torch.cuda.CUDAGraph
     ins: dict
     outs: dict
     launches: dict
+    bytes: dict
     plain: int
+    kinds: dict
+    host: HostOuts
 
 
 class GraphedRunner:
@@ -374,8 +430,9 @@ class GraphedRunner:
     `runner.capture`; nothing runs), and replays the graph; so does every
     later call: the batch copied into the static inputs (`runner.upload`),
     one replay on the current stream (`runner.issue`), the static outputs
-    read back (`runner.readback`: `to_numpy` waits, so no replay
-    overwrites an answer not yet on the host). A signature that never
+    read back (`runner.readback`: into the graph's `HostOuts`, page-locked
+    and reused once the caller lets go of them; the read waits, so no
+    replay overwrites an answer not yet on the host). A signature that never
     repeats is never captured. A capture that raises leaves its signature
     eager for the runner's life: one warning, one "capture_failures"
     count, no retry. `prime(batch)` makes the eager call and the capture
@@ -384,12 +441,14 @@ class GraphedRunner:
 
     Each graph keeps its static inputs, outputs and intermediates in a
     private memory pool while the runner lives: about one job's
-    activations per signature.
+    activations per signature; and on the host at most two sets of its
+    outputs.
 
-    Counts follow what the card runs: the K1-K3 launches counted while
-    capturing come off `kernels.launch_counts()`, and each replay adds them
-    back; under the recorder a replay adds the launches and plain steps to
-    the open `serve.job` (`trace.replayed`). `kernels.graph_counts()`
+    Counts follow what the card runs: the launches (and lut_int8's bytes)
+    counted while capturing come off `kernels.launch_counts()` (and
+    `kernels.byte_counts()`), and each replay adds them back; under the
+    recorder a replay adds the launches and plain steps to the open
+    `serve.job` (`trace.replayed`). `kernels.graph_counts()`
     counts the calls ("eager" or "replays") and the "captures" and
     "capture_failures". A replay's counts are the ones its capture counted,
     not read anew: the card runs what was captured.
@@ -432,9 +491,10 @@ class GraphedRunner:
             g.graph.replay()
             _lib.count_graph("replays")
             _lib.add_launches(g.launches)
-            trace.replayed(sum(g.launches.values()), g.plain)
+            _lib.add_bytes(g.bytes)
+            trace.replayed(sum(g.launches.values()), g.plain, g.kinds)
         with trace.span("runner.readback"):
-            return _C.to_numpy(g.outs, self.batched)
+            return g.host.read(g.outs, self.batched)
 
     def _capture(self, sig: tuple, host: dict) -> _Graph | None:
         """Capture `fn` over new static inputs of the signature's shapes;
@@ -460,7 +520,9 @@ class GraphedRunner:
                 return None
             _lib.count_graph("captures")
             g = self.graphs[sig] = _Graph(graph, ins, outs, tally.launches,
-                                          tally.plain_steps)
+                                          tally.bytes, tally.plain_steps,
+                                          tally.plain_kinds,
+                                          HostOuts(self.device))
             return g
 
     def prime(self, batch: int) -> None:

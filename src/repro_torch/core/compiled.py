@@ -28,8 +28,9 @@ Backends over the lowered program:
     the hand-written CUDA kernels K1/K2 (`kernels.gemm_int8`,
     `kernels.conv2d_im2col`), with a gemm/conv -> requant chain fused into
     the kernel epilogue whenever the int32 accumulator has no other
-    consumer. Other op kinds run as plain torch between launches. On CPU
-    tensors the wrappers take the kernels' plain versions.
+    consumer, and every SiLU on its table kernel (`kernels.lut_int8`).
+    Other op kinds run as plain torch between launches. On CPU tensors
+    the wrappers take the kernels' plain versions.
 
 Programs are cached per graph *signature* (structural hash) so serving
 engines compile each distinct network once per process.
@@ -50,11 +51,13 @@ from .partition import Partitioner, Subtask
 from .schedule import StaticSchedule, compute_schedule
 from .executor import (_NP_DT, _avgpool, _maxpool, _requant_np, _sat_add,
                        im2col)
+from .quantize import silu_table
 from .. import trace
 from ..hw import HardwareModel, derive_conv_blocks, derive_gemm_blocks
 from ..kernels import ref as kref
 from ..kernels.conv2d_im2col import conv2d_int8
 from ..kernels.gemm_int8 import gemm_int8
+from ..kernels.lut_int8 import lut_int8, lut_int8_plain
 
 # "bf16" buffers hold float32 values, as in the JAX package's lowering
 _TORCH_DT = {"int8": torch.int8, "uint8": torch.uint8, "int16": torch.int16,
@@ -68,7 +71,8 @@ class CompileError(ValueError):
 
 # Op kinds both backends lower; matches the executor oracle's coverage.
 SUPPORTED_KINDS = frozenset({"gemm", "conv2d", "requant", "relu", "add",
-                             "maxpool", "avgpool", "gap", "concat"})
+                             "maxpool", "avgpool", "gap", "concat", "silu",
+                             "upsample", "pack"})
 
 
 def supports_graph(g: Graph) -> bool:
@@ -104,6 +108,7 @@ class OpBatch:
     attrs: dict
     mult: np.ndarray | None      # pre-resolved requant multiplier
     tiles: np.ndarray            # (T, 4) gemm/conv | (T, 2) row ops
+    table: np.ndarray | None = None   # a SiLU's 256 int8 entries
 
 
 @dataclasses.dataclass(eq=False)
@@ -269,11 +274,13 @@ def lower_program(g: Graph, params: dict, subtasks: list[Subtask],
         # scalar or per-channel (N,) multiplier — both broadcast in requant
         mult = (np.asarray(params[f"{op.name}.mult"], np.float32)
                 if op.kind == "requant" else None)
+        table = (silu_table(op.attrs["in_scale"], op.attrs["out_scale"])
+                 if op.kind == "silu" else None)
         batches.append(OpBatch(
             op_idx=op_pos[op.name], name=op.name, kind=op.kind,
             in_idx=tuple(index[t] for t in op.inputs), w_idx=w_idx,
             out_idx=index[op.outputs[0]], attrs=op.attrs, mult=mult,
-            tiles=tiles))
+            tiles=tiles, table=table))
 
     return CompiledProgram(
         graph=g, signature=graph_signature(g),
@@ -394,6 +401,14 @@ def run_numpy(prog: CompiledProgram,
             out = np.clip(m, -128, 127).astype(np.int8).reshape(1, -1)
         elif b.kind == "concat":
             out = np.concatenate([vals[i] for i in b.in_idx], axis=-1)
+        elif b.kind == "silu":
+            out = b.table[vals[b.in_idx[0]].astype(np.int16) + 128]
+        elif b.kind == "upsample":
+            f = a["factor"]
+            out = vals[b.in_idx[0]].repeat(f, axis=0).repeat(f, axis=1)
+        elif b.kind == "pack":
+            out = np.concatenate([vals[i].reshape(-1, a["row"])
+                                  for i in b.in_idx])
         else:
             raise CompileError(f"op kind {b.kind} not lowered")
         vals[b.out_idx] = out
@@ -423,10 +438,11 @@ def resolve_device(device="cuda") -> torch.device:
 class DeviceConsts:
     """A program's baked constants on one device: weights by buffer index,
     requant multipliers (f32, 1 or N values) by the requant's output buffer
-    index."""
+    index, SiLU tables (256 int8) by the SiLU's output buffer index."""
 
     weights: dict[int, torch.Tensor]
     mults: dict[int, torch.Tensor]
+    tables: dict[int, torch.Tensor]
 
 
 def device_consts(prog: CompiledProgram, device: torch.device
@@ -439,7 +455,9 @@ def device_consts(prog: CompiledProgram, device: torch.device
                      for i, w in prog.weights.items()},
             mults={b.out_idx: torch.as_tensor(
                        np.asarray(b.mult, np.float32).reshape(-1)).to(device)
-                   for b in prog.batches if b.kind == "requant"})
+                   for b in prog.batches if b.kind == "requant"},
+            tables={b.out_idx: torch.as_tensor(b.table).to(device)
+                    for b in prog.batches if b.kind == "silu"})
         prog._device_cache[key] = consts
     return consts
 
@@ -525,6 +543,16 @@ def _torch_op(b: OpBatch, vals: list, prog: CompiledProgram,
         return torch.clamp(m, -128, 127).to(torch.int8).reshape(B, 1, -1)
     if b.kind == "concat":
         return torch.cat([vals[i] for i in b.in_idx], dim=-1)
+    if b.kind == "silu":
+        return lut_int8_plain(x, consts.tables[b.out_idx])
+    if b.kind == "upsample":
+        f = a["factor"]
+        _, H, W, Cc = x.shape
+        return x[:, :, None, :, None, :].expand(B, H, f, W, f, Cc).reshape(
+            B, H * f, W * f, Cc)
+    if b.kind == "pack":
+        return torch.cat([vals[i].reshape(B, -1, a["row"])
+                          for i in b.in_idx], dim=1)
     raise CompileError(f"op kind {b.kind} not lowered")
 
 
@@ -579,19 +607,21 @@ def run_torch(prog: CompiledProgram, inputs: dict[str, np.ndarray],
 
 # Op kinds with a kernel lowering; everything else runs as plain torch
 # between launches.
-KERNEL_KINDS = frozenset({"gemm", "conv2d"})
+KERNEL_KINDS = frozenset({"gemm", "conv2d", "silu"})
 # the wrapper (and launch counter) each kernel mode runs on
-KERNEL_OF = {"gemm": "gemm_int8", "conv2d": "conv2d_int8"}
+KERNEL_OF = {"gemm": "gemm_int8", "conv2d": "conv2d_int8",
+             "lut": "lut_int8"}
 
 
 @dataclasses.dataclass(frozen=True)
 class _KernelStep:
     """One op of the kernel-backend program plan.
 
-    mode: "gemm" / "conv2d" (kernel), "torch" (plain torch between
-    launches), or "skip" (a requant batch fused into the preceding kernel's
-    epilogue). `blocks` is the scratchpad-derived tiling of the modeled
-    machine: plan metadata for the sanitizer, not the CUDA tiles.
+    mode: "gemm" / "conv2d" (kernel), "lut" (a SiLU on its table kernel),
+    "torch" (plain torch between launches), or "skip" (a requant batch
+    fused into the preceding kernel's epilogue). `blocks` is the
+    scratchpad-derived tiling of the modeled machine: plan metadata for
+    the sanitizer, not the CUDA tiles.
     """
 
     mode: str
@@ -636,6 +666,9 @@ def _kernel_plan(prog: CompiledProgram) -> list[_KernelStep]:
         if b.kind not in KERNEL_KINDS:
             plan.append(_KernelStep("torch", b, b.out_idx, None, ()))
             continue
+        if b.kind == "silu":
+            plan.append(_KernelStep("lut", b, b.out_idx, None, ()))
+            continue
         rq = _fusable_requant(prog, b)
         out_idx = rq.out_idx if rq is not None else b.out_idx
         mult = rq.mult if rq is not None else None
@@ -656,11 +689,15 @@ def _kernel_plan(prog: CompiledProgram) -> list[_KernelStep]:
 
 def run_kernel_step(prog: CompiledProgram, step: _KernelStep, vals: list,
                     consts: DeviceConsts) -> None:
-    """One gemm/conv plan step on K1/K2, epilogue fused as planned."""
+    """One gemm/conv plan step on K1/K2, epilogue fused as planned, or a
+    SiLU on its table kernel."""
     b = step.batch
     a = b.attrs
     x = vals[b.in_idx[0]]
     B = x.shape[0]
+    if step.mode == "lut":
+        vals[step.out_idx] = lut_int8(x, consts.tables[b.out_idx])
+        return
     mult = None if step.mult is None else consts.mults[step.out_idx]
     if step.mode == "gemm":
         out = gemm_int8(x.reshape(B, a["M"], a["K"]),
@@ -676,7 +713,8 @@ def run_kernel_step(prog: CompiledProgram, step: _KernelStep, vals: list,
 
 def kernel_batched(prog: CompiledProgram, device="cuda"):
     """The per-op kernel program over a natively batched leading axis: one
-    K1/K2 launch per gemm/conv batch. Built once per (program, device)."""
+    K1/K2 launch per gemm/conv batch, one lut_int8 launch per SiLU. Built
+    once per (program, device)."""
     dev = resolve_device(device)
     key = ("kernel", str(dev))
     fn = prog._device_cache.get(key)
@@ -689,7 +727,7 @@ def kernel_batched(prog: CompiledProgram, device="cuda"):
                 if step.mode == "skip":
                     continue             # fused into the previous kernel
                 if step.mode == "torch":
-                    trace.plain_step()
+                    trace.plain_step(step.batch.kind)
                     b = step.batch
                     vals[b.out_idx] = _torch_op(b, vals, prog, consts)
                 else:

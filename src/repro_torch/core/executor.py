@@ -25,6 +25,7 @@ import numpy as np
 from .graph import Graph, OpNode, conv_out_hw
 from .partition import Subtask
 from .mapping import Mapping
+from .quantize import silu_table
 from .schedule import StaticSchedule
 
 
@@ -227,6 +228,15 @@ def _eval_op(op: OpNode, g: Graph, params: dict,
         return out
     if k == "concat":
         return np.concatenate([vals[t] for t in op.inputs], axis=-1)
+    if k == "silu":
+        table = silu_table(op.attrs["in_scale"], op.attrs["out_scale"])
+        return table[vals[op.inputs[0]].astype(np.int16) + 128]
+    if k == "upsample":
+        f = op.attrs["factor"]
+        return vals[op.inputs[0]].repeat(f, axis=0).repeat(f, axis=1)
+    if k == "pack":
+        row = op.attrs["row"]
+        return np.concatenate([vals[t].reshape(-1, row) for t in op.inputs])
     raise NotImplementedError(f"op kind {k}")
 
 

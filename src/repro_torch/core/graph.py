@@ -64,7 +64,8 @@ class OpNode:
         # elementwise-ish ops: ~a few ops per output element
         out = g.tensors[self.outputs[0]]
         per = {"relu": 1, "add": 1, "mul": 1, "maxpool": 4, "avgpool": 4,
-               "requant": 4, "norm": 8, "softmax": 10, "gap": 2}.get(self.kind, 2)
+               "requant": 4, "norm": 8, "softmax": 10, "gap": 2,
+               "silu": 1, "upsample": 1, "pack": 1}.get(self.kind, 2)
         return float(per * out.size)
 
     def is_gemm_like(self) -> bool:
@@ -238,6 +239,43 @@ def pool2d(g: Graph, name: str, kind: str, x: str, k: int, stride: int,
     g.add_tensor(y, (oh, ow, C), g.tensors[x].dtype)
     g.add_op(OpNode(name, kind, [x], [y],
                     attrs={"k": k, "stride": stride, "padding": padding}))
+    return y
+
+
+def silu(g: Graph, name: str, x: str, in_scale: float,
+         out_scale: float) -> str:
+    """int8 -> int8 SiLU, applied as the 256-entry table that
+    `quantize.silu_table(in_scale, out_scale)` builds from the op's
+    attrs: the op has no parameter."""
+    y = f"{name}.out"
+    g.add_tensor(y, g.tensors[x].shape, "int8")
+    g.add_op(OpNode(name, "silu", [x], [y],
+                    attrs={"in_scale": in_scale, "out_scale": out_scale}))
+    return y
+
+
+def upsample(g: Graph, name: str, x: str, factor: int = 2) -> str:
+    """Nearest-neighbour upsampling of (H, W, C) by `factor` on both
+    spatial axes: out[i, j] = x[i // factor, j // factor]."""
+    H, W, C = g.tensors[x].shape
+    y = f"{name}.out"
+    g.add_tensor(y, (H * factor, W * factor, C), g.tensors[x].dtype)
+    g.add_op(OpNode(name, "upsample", [x], [y], attrs={"factor": factor}))
+    return y
+
+
+def pack_rows(g: Graph, name: str, xs: list[str], row: int) -> str:
+    """(H_i, W_i, A * row) maps -> one (sum_i H_i W_i A, row) tensor: map
+    by map, pixel by pixel in (y, x) order, and a pixel's A rows in
+    channel order, i.e. rows (map, y, x, a)."""
+    shapes = [g.tensors[t].shape for t in xs]
+    if any(s[-1] % row for s in shapes):
+        raise GraphError(f"{name}: channels {[s[-1] for s in shapes]} are "
+                         f"not whole rows of {row}")
+    n = sum(s[0] * s[1] * s[2] // row for s in shapes)
+    y = f"{name}.out"
+    g.add_tensor(y, (n, row), g.tensors[xs[0]].dtype)
+    g.add_op(OpNode(name, "pack", list(xs), [y], attrs={"row": row}))
     return y
 
 

@@ -17,7 +17,9 @@ pass mirrors that structure on the compiled program:
      steps in order over the whole batch, with the requant epilogues fused
      as the per-op plan decided. A single gemm/conv whose working set alone
      exceeds the scratchpad runs on K1/K2 (one launch); fallback-only steps
-     that fit in no segment run as plain torch between launches.
+     that fit in no segment run as plain torch between launches, and so do
+     the steps K3 has no row for (upsample, pack); a SiLU runs outside
+     every segment on its own table kernel (`kernels.lut_int8`).
   3. **Launch invariant**: the planner re-packs with a doubled budget until
      the program emits at most `num_cores` kernels (`max_kernels` override
      in `BackendOptions`). The kernel wrappers count their launches
@@ -67,8 +69,9 @@ class Segment:
 
     kind: "fused"   — one K3 launch replaying all steps in order;
           "tiled"   — one oversized gemm/conv step on K1/K2 (one launch);
-          "outside" — one plain-torch step executed between launches (no
-                      kernel launch).
+          "outside" — one step executed between those launches: plain
+                      torch (no kernel launch), or a SiLU on lut_int8 (one
+                      launch, outside the per-core cap on K1-K3 launches).
     """
 
     kind: str
@@ -122,6 +125,11 @@ def _pack(prog: C.CompiledProgram, plan, budget: int, dual: bool
 
     for step in plan:
         if step.mode == "skip":      # requant folded into its producer
+            continue
+        if step.mode == "lut" or (step.mode == "torch"
+                                  and step.batch.kind not in STEP_KINDS):
+            flush()                  # K3 has no row for it
+            segments.append(Segment("outside", (step,)))
             continue
         sb = _step_bytes(prog, step, dual)
         if step.mode == "torch":
@@ -276,6 +284,9 @@ F_W, F_MULT, F_MULT_LEN = 11, 12, 13
 F_A = 14
 KIND = {"gemm": 1, "conv2d": 2, "requant": 3, "relu": 4, "add": 5,
         "maxpool": 6, "avgpool": 7, "gap": 8, "copy_ch": 9}
+# the plain-torch kinds that a fused segment may take: K3 has rows for them
+STEP_KINDS = frozenset({"requant", "relu", "add", "maxpool", "avgpool",
+                        "gap", "concat"})
 _DT_CODE = {"int8": 0, "int32": 1}
 
 
@@ -517,13 +528,13 @@ def megakernel_batched(prog: C.CompiledProgram, device="cuda", *,
                 if seg.kind == "fused":
                     with trace.kernel("megakernel"):
                         run_fused(prog, seg, vals, consts, tables.get(si))
-                elif seg.kind == "tiled":
+                elif seg.kind == "tiled" or seg.steps[0].mode == "lut":
                     step = seg.steps[0]
                     with trace.kernel(C.KERNEL_OF[step.mode]):
                         C.run_kernel_step(prog, step, vals, consts)
                 else:                # "outside": plain torch, no launch
-                    trace.plain_step()
                     b = seg.steps[0].batch
+                    trace.plain_step(b.kind)
                     vals[b.out_idx] = C._torch_op(b, vals, prog, consts)
 
         fn = prog._device_cache[key] = C._program_fn(prog, body)

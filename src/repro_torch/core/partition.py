@@ -253,8 +253,11 @@ class Partitioner:
         y = g.tensors[op.outputs[0]]
         ins = [g.tensors[t] for t in op.inputs]
         rows = y.shape[0]
-        per_row = (sum(t.nbytes // max(1, t.shape[0]) for t in ins)
-                   + y.nbytes // max(1, rows))
+        if op.kind == "pack":        # each output row reads one input row
+            per_row = 2 * y.nbytes // max(1, rows)
+        else:
+            per_row = (sum(t.nbytes // max(1, t.shape[0]) for t in ins)
+                       + y.nbytes // max(1, rows))
         rows_t = max(1, min(rows, (self.budget // 2) // max(1, per_row)))
         out: list[Subtask] = []
         total_flops = op.flops(g)
@@ -262,7 +265,7 @@ class Partitioner:
             r1 = min(rows, r0 + rows_t)
             frac = (r1 - r0) / rows
             loads = []
-            for t in ins:
+            for t, band in zip(ins, _input_bands(op, ins, r0, r1)):
                 nb = int(t.nbytes * frac) if t.shape[0] == rows else t.nbytes
                 reg = (("rows", r0, r1) if t.shape[0] == rows else ("full",))
                 if op.kind in ("maxpool", "avgpool", "gap"):
@@ -271,6 +274,12 @@ class Partitioner:
                     i0 = r0 * st_
                     i1 = min(t.shape[0], (r1 - 1) * st_ + k)
                     nb = max(1, int(t.nbytes * (i1 - i0) / t.shape[0]))
+                    reg = ("rows", i0, i1)
+                elif band is not None:
+                    i0, i1 = band
+                    if i0 >= i1:             # no row of this input
+                        continue
+                    nb = t.nbytes * (i1 - i0) // t.shape[0]
                     reg = ("rows", i0, i1)
                 loads.append(Transfer(t.name, "act", nb, nb, reg))
             st_bytes = max(1, int(y.nbytes * frac))
@@ -283,6 +292,27 @@ class Partitioner:
                 store=store, sp_resident=resident,
                 tile={"r0": r0, "r1": r1}))
         return out
+
+
+def _input_bands(op: OpNode, ins: list, r0: int, r1: int) -> list:
+    """For each input of a row-band op, the input rows [i0, i1) that output
+    rows [r0, r1) read, where they are not the same rows (None): an
+    upsample's rows divided by its factor; for a pack, each map's rows
+    that hold output rows in [r0, r1), or an empty band."""
+    if op.kind == "upsample":
+        f = op.attrs["factor"]
+        return [(r0 // f, (r1 - 1) // f + 1)]
+    if op.kind == "pack":
+        bands, off = [], 0
+        for t in ins:
+            H, W, C = t.shape
+            per_y = W * C // op.attrs["row"]      # output rows per map row
+            a, b = max(r0, off), min(r1, off + H * per_y)
+            bands.append(((a - off) // per_y, (b - 1 - off) // per_y + 1)
+                         if a < b else (0, 0))
+            off += H * per_y
+        return bands
+    return [None] * len(ins)
 
 
 def _regions_overlap(a: tuple, b: tuple) -> bool:

@@ -76,6 +76,15 @@ def requantize(acc_i32: torch.Tensor, mult) -> torch.Tensor:
     return torch.clamp(y, -128, 127).to(torch.int8)
 
 
+def silu_table(in_scale: float, out_scale: float) -> np.ndarray:
+    """The int8 SiLU as a table of 256 int8: entry q + 128 is
+    clamp(round_half_even(silu(q * in_scale) / out_scale), -128, 127),
+    computed in float64 on the host."""
+    x = np.arange(-128, 128, dtype=np.float64) * in_scale
+    y = np.round(x / (1.0 + np.exp(-x)) / out_scale)
+    return np.clip(y, -128, 127).astype(np.int8)
+
+
 def sqnr_db(ref: np.ndarray, test: np.ndarray) -> float:
     err = ref.astype(np.float64) - test.astype(np.float64)
     p_sig = np.mean(ref.astype(np.float64) ** 2) + 1e-30

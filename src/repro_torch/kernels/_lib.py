@@ -15,7 +15,9 @@ launched without error, and nowhere else; a call that takes the plain
 version (a CPU tensor) counts nothing. A CUDA graph's capture takes the
 launches it counted off again, and each replay adds them back
 (`add_launches`), so the counters say what the card ran.
-`reset_launch_counts` / `launch_counts` read them. Beside them,
+`reset_launch_counts` / `launch_counts` read them. The kernels of
+`BYTE_KERNELS` also count the bytes each launch moves at least
+(`byte_counts`, taken off and added back as launches are). Beside them,
 `graph_counts` counts the `cuda` backend's program calls by how they ran
 (`compiler/backends.py::GraphedRunner`): "eager", "captures", "replays"
 and "capture_failures"; `reset_launch_counts` zeroes both.
@@ -42,7 +44,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("gemm_int8", "conv2d_im2col", "megakernel", "flash_attention",
-           "ssm_scan", "tiled_int8")
+           "ssm_scan", "tiled_int8", "lut_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,8 +52,10 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 KERNELS = ("gemm_int8", "conv2d_int8", "megakernel", "flash_attention",
-           "ssm_scan", "tiled_int8")
+           "ssm_scan", "tiled_int8", "lut_int8")
 _COUNTS = {k: 0 for k in KERNELS}
+BYTE_KERNELS = ("lut_int8",)
+_BYTES = {k: 0 for k in BYTE_KERNELS}
 
 
 GRAPH_EVENTS = ("captures", "replays", "eager", "capture_failures")
@@ -67,6 +71,17 @@ def add_launches(counts: dict[str, int]) -> None:
     the launch counters."""
     for k, n in counts.items():
         _COUNTS[k] += n
+
+
+def count_bytes(kernel: str, n: int) -> None:
+    _BYTES[kernel] += n
+
+
+def add_bytes(counts: dict[str, int]) -> None:
+    """Add `counts` (kernel -> bytes; negative takes bytes off) to the byte
+    counters."""
+    for k, n in counts.items():
+        _BYTES[k] += n
 
 
 def count_graph(event: str) -> None:
@@ -88,12 +103,18 @@ def refuse_grad(kernel: str, *tensors) -> None:
 def reset_launch_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+    for k in _BYTES:
+        _BYTES[k] = 0
     for k in _GRAPHS:
         _GRAPHS[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_COUNTS)
+
+
+def byte_counts() -> dict[str, int]:
+    return dict(_BYTES)
 
 
 def graph_counts() -> dict[str, int]:
@@ -172,6 +193,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ssm_scan_launch": [P, P, P, P, I, I, L, P],
         "tiled_int8_launch": [P, P, I, P, I, I, I, I, P, I, I, I, I, I, I,
                               I, I, I, P, P, I, P],
+        "lut_int8_launch": [P, P, P, L, P],
     }
     for name, args in table.items():
         fn = getattr(lib, name, None)

@@ -35,20 +35,21 @@ in `compiler/backends.py::_numpy_io` and `GraphedRunner`):
                           of the `serve.job` that served it
 
 Counters, summed on the open `serve.job` record: `launches` and `launch_ns`
-(the kernel launches of the K1-K3 wrapper calls in the program's body and
-the host time of those calls; `kernel(name)` times them and, under the
-profiler, names them `kernel.<name>`), `plain_steps` (the plain torch
-steps run between launches) and `replayed`. `plain_steps()` is the
-plain-step total since `reset()`; it is apart from
-`kernels.launch_counts()`.
+(the kernel launches of the K1-K3 and lut_int8 wrapper calls in the
+program's body and the host time of those calls; `kernel(name)` times them
+and, under the profiler, names them `kernel.<name>`), `plain_steps` (the
+plain torch steps run between launches), `plain_kinds` (those steps by op
+kind, e.g. {"upsample": 2, "pack": 1}) and `replayed`. `plain_steps()` and
+`plain_kinds()` are the plain-step totals since `reset()`; they are apart
+from `kernels.launch_counts()` and `kernels.byte_counts()`.
 
 A job whose program the `cuda` backend replayed as a CUDA graph
 (`compiler/backends.py::GraphedRunner`) runs no wrapper and no plain step
 on the host: `runner.upload` copies into the graph's static inputs,
-`runner.issue` is the replay, `replayed` reads 1, `launches` and
-`plain_steps` are the ones the graph's capture counted (what the card
-runs), and `launch_ns` reads 0. The capture itself counts nothing
-(`Tally`); its `runner.capture` span lies where the runner was primed
+`runner.issue` is the replay, `replayed` reads 1, `launches`,
+`plain_steps` and `plain_kinds` are the ones the graph's capture counted
+(what the card runs), and `launch_ns` reads 0. The capture itself counts
+nothing (`Tally`); its `runner.capture` span lies where the runner was primed
 (`GraphedRunner.prime`, outside any job when a `Server` builds the
 runner), or in the job that called a signature the second time.
 
@@ -65,7 +66,7 @@ from .kernels import _lib
 NAMES = ("serve.step", "serve.job", "serve.stack", "runner.capture",
          "runner.upload", "runner.issue", "runner.readback", "serve.finish",
          "serve.queue")
-KERNELS = ("gemm_int8", "conv2d_int8", "megakernel")
+KERNELS = ("gemm_int8", "conv2d_int8", "megakernel", "lut_int8")
 KERNEL_NAMES = tuple(f"kernel.{k}" for k in KERNELS)
 
 ON = False
@@ -73,10 +74,11 @@ _records: list = []
 _open: list = []          # indices into _records of the open spans
 _job = None               # the open serve.job record
 _plain = 0
+_kinds: dict = {}         # plain steps by op kind
 
 
 FIELDS = ("name", "start_ns", "end_ns", "parent", "job", "ticket", "net",
-          "launches", "launch_ns", "plain_steps", "replayed")
+          "launches", "launch_ns", "plain_steps", "plain_kinds", "replayed")
 
 
 class Record:
@@ -84,8 +86,9 @@ class Record:
     index of its `parent` in `records()` (None at the top), and the `job`
     and `ticket` ids it belongs to (None where it has none). A `serve.job`
     also carries its network (`net`) and counters: `launches`,
-    `launch_ns`, `plain_steps`, and `replayed` (1 when its program was a
-    graph replay). Entered (`span`), it is the open span."""
+    `launch_ns`, `plain_steps`, `plain_kinds` ({op kind: plain steps}),
+    and `replayed` (1 when its program was a graph replay). Entered
+    (`span`), it is the open span."""
 
     __slots__ = FIELDS + ("_rf",)
 
@@ -94,6 +97,7 @@ class Record:
         self.name, self.start_ns, self.end_ns = name, start_ns, end_ns
         self.parent, self.job, self.ticket, self.net = None, job, ticket, net
         self.launches = self.launch_ns = self.plain_steps = 0
+        self.plain_kinds: dict = {}
         self.replayed = 0
         self._rf = None
 
@@ -154,10 +158,10 @@ def disable() -> None:
 
 def reset() -> None:
     """Drop every record and zero the counters."""
-    global _job, _plain
+    global _job, _plain, _kinds
     _records.clear()
     _open.clear()
-    _job, _plain = None, 0
+    _job, _plain, _kinds = None, 0, {}
 
 
 def records() -> list[Record]:
@@ -168,6 +172,16 @@ def records() -> list[Record]:
 def plain_steps() -> int:
     """Plain torch steps the programs ran since `reset()`, while on."""
     return _plain
+
+
+def plain_kinds() -> dict:
+    """`plain_steps()` by op kind."""
+    return dict(_kinds)
+
+
+def _add_kinds(into: dict, kinds: dict) -> None:
+    for k, n in kinds.items():
+        into[k] = into.get(k, 0) + n
 
 
 _profiling = torch.autograd._profiler_enabled
@@ -233,55 +247,70 @@ _COUNTS = _lib._COUNTS         # the launch counters, read in place
 _KERNEL = {k: _Kernel(k) for k in KERNELS}
 
 
-def plain_step() -> None:
-    """Count one plain torch step of a program's body."""
+def plain_step(kind: str | None = None) -> None:
+    """Count one plain torch step of a program's body, of op `kind`."""
     global _plain
     if ON:
         _plain += 1
+        if kind is not None:
+            _kinds[kind] = _kinds.get(kind, 0) + 1
         if _job is not None:
             _job.plain_steps += 1
+            if kind is not None:
+                _job.plain_kinds[kind] = _job.plain_kinds.get(kind, 0) + 1
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - n for k, n in before.items() if after[k] != n}
 
 
 class Tally:
     """`with Tally() as t:` around a program body that is captured into a
     CUDA graph and not run: what the body would run is counted into
-    `t.launches` (kernel -> K1-K3 launches) and `t.plain_steps`, whether
-    the recorder is on or not, and none of it reaches
-    `kernels.launch_counts()`, the open `serve.job` or `plain_steps()`.
-    The body opens no span."""
+    `t.launches` (kernel -> launches), `t.bytes` (kernel -> bytes, for
+    `kernels._lib.BYTE_KERNELS`), `t.plain_steps` and `t.plain_kinds`,
+    whether the recorder is on or not, and none of it reaches
+    `kernels.launch_counts()`, `kernels.byte_counts()`, the open
+    `serve.job`, `plain_steps()` or `plain_kinds()`. The body opens no
+    span."""
 
     launches: dict = {}
+    bytes: dict = {}
     plain_steps = 0
+    plain_kinds: dict = {}
 
     def __enter__(self):
-        global ON, _job, _plain
-        self._saved = ON, _job, _plain
+        global ON, _job, _plain, _kinds
+        self._saved = ON, _job, _plain, _kinds
         self._counts = _lib.launch_counts()
-        ON, _job, _plain = True, None, 0
+        self._bytes = _lib.byte_counts()
+        ON, _job, _plain, _kinds = True, None, 0, {}
         return self
 
     def __exit__(self, *exc):
-        global ON, _job, _plain
-        after = _lib.launch_counts()
-        self.launches = {k: after[k] - n for k, n in self._counts.items()
-                         if after[k] != n}
+        global ON, _job, _plain, _kinds
+        self.launches = _delta(self._counts, _lib.launch_counts())
+        self.bytes = _delta(self._bytes, _lib.byte_counts())
         _lib.add_launches({k: -n for k, n in self.launches.items()})
-        self.plain_steps = _plain
-        ON, _job, _plain = self._saved
+        _lib.add_bytes({k: -n for k, n in self.bytes.items()})
+        self.plain_steps, self.plain_kinds = _plain, _kinds
+        ON, _job, _plain, _kinds = self._saved
         return False
 
 
-def replayed(launches: int, plain: int) -> None:
+def replayed(launches: int, plain: int, kinds: dict | None = None) -> None:
     """Count one replay of a captured program body that launches
-    `launches` kernels and runs `plain` plain steps, while on: both add to
-    the open `serve.job`, which reads `replayed` 1, and the plain steps to
-    `plain_steps()`."""
+    `launches` kernels and runs `plain` plain steps (`kinds`: by op kind),
+    while on: they add to the open `serve.job`, which reads `replayed` 1,
+    and the plain steps to `plain_steps()` and `plain_kinds()`."""
     global _plain
     if ON:
         _plain += plain
+        _add_kinds(_kinds, kinds or {})
         if _job is not None:
             _job.launches += launches
             _job.plain_steps += plain
+            _add_kinds(_job.plain_kinds, kinds or {})
             _job.replayed = 1
 
 

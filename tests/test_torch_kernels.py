@@ -279,7 +279,8 @@ def test_wrappers_count_calls_and_refuse_bad_operands(rng, monkeypatch):
     assert plain["conv2d_int8_plain"].call_count == 1
     assert launch_counts() == {"gemm_int8": 0, "conv2d_int8": 0,
                                "megakernel": 0, "flash_attention": 0,
-                               "ssm_scan": 0, "tiled_int8": 0}
+                               "ssm_scan": 0, "tiled_int8": 0,
+                               "lut_int8": 0}
     with pytest.raises(TypeError):
         gemm_int8(x.to(torch.int32), w)
     with pytest.raises(ValueError):

@@ -234,6 +234,6 @@ def test_reset_drops_the_records_and_counters():
         "name": "serve.step", "start_ns": trace.records()[0].start_ns,
         "end_ns": trace.records()[0].end_ns, "parent": None, "job": None,
         "ticket": None, "net": None, "launches": 0, "launch_ns": 0,
-        "plain_steps": 0, "replayed": 0}
+        "plain_steps": 0, "plain_kinds": {}, "replayed": 0}
     trace.reset()
     assert trace.records() == [] and trace.plain_steps() == 0
